@@ -1,0 +1,121 @@
+"""Extended (erosion) dispersion -> packed strong words: CUDA kernel and
+plain version.
+
+Counterpart of
+:func:`ffs_tpu.ops.dispersion_extended_pallas.dispersion_extended_packed_raw`:
+the three extended stages (r=3 background test, Chebyshev-2 erosion, 11x11
+background-mean test), then the [pc | w32] bit pack of
+:mod:`ops.dispersion_packed` with ``nwl = nwl_for_width(W, HALO)`` (HALO = 10).
+
+A CPU tensor takes the plain PyTorch version
+:func:`dispersion_extended_packed_plain`; a CUDA tensor
+launches the kernels in ``csrc/dispersion_extended_packed.cu`` or raises.
+``dispersion_extended_packed_raw.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ffs_tpu.constants import (
+    DEFAULT_MIN_COUNT,
+    DEFAULT_NSIG_B,
+    DEFAULT_NSIG_S,
+    EROSION_CHEBYSHEV_DISTANCE,
+    KERNEL_RADIUS,
+    KERNEL_RADIUS_EXTENDED,
+)
+
+from . import dispersion as dops
+from .dispersion_packed import (
+    PIXEL_TYPES,
+    _check_inputs,
+    _cuda_args,
+    _ptr,
+    _stream,
+    mask_box_count,
+    nwl_for_width,
+    pack_pcw,
+)
+
+# image halo of the fused stages: second-pass radius + erosion distance +
+# first-pass radius (ffs_tpu.ops.dispersion_extended_pallas._IMG)
+HALO = KERNEL_RADIUS_EXTENDED + EROSION_CHEBYSHEV_DISTANCE + KERNEL_RADIUS
+
+
+def mask_box_count_extended(mask: torch.Tensor) -> torch.Tensor:
+    """Frame-invariant first-pass mask box count, (H, W) u16.
+
+    The JAX package keeps this on a padded strip canvas; the CUDA kernel
+    reads the first-pass count only at in-frame pixels (out-of-frame pixels
+    are masked and never background), so the port keeps the plain (H, W)
+    grid — the same array as :func:`mask_box_count` — and the kernel
+    wrapper checks its shape against the mask.
+    """
+    return mask_box_count(mask, KERNEL_RADIUS)
+
+
+def dispersion_extended_packed_plain(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+) -> torch.Tensor:
+    """The kernels' plain PyTorch version, on any device: the float32
+    ``ops.dispersion.dispersion_extended``, then ``pack_pcw``."""
+    strong = dops.dispersion_extended(
+        image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+        nsig_s=nsig_s, dtype=torch.float32,
+    )
+    return pack_pcw(strong, nwl_for_width(image.shape[-1], HALO))
+
+
+def dispersion_extended_packed_raw(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    mbox: torch.Tensor | None = None,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+) -> torch.Tensor:
+    """Extended dispersion -> (B?, H, 2*nwl) int32 [pc | w32] rows.
+
+    ``image`` (H, W) or (B, H, W) uint16, uint32 or int32; ``mask`` (H, W) uint8;
+    ``mbox`` the optional :func:`mask_box_count_extended`.
+    """
+    _check_inputs(image, mask, mbox)
+    if image.device.type == "cpu":
+        return dispersion_extended_packed_plain(
+            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+            nsig_s=nsig_s,
+        )
+    if image.device.type != "cuda":
+        raise ValueError(f"no kernel for device {image.device}")
+
+    from ..utils import cuda_build
+
+    frames, mask_c, mbox_c = _cuda_args(image, mask, mbox)
+    b, h, w = frames.shape
+    nwl = nwl_for_width(w, HALO)
+    dev = image.device
+    # per-stage planes: first-pass and survived masks (u8, one per frame)
+    first = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+    survived = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+    out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=dev)
+    rc = cuda_build.lib().ffs_dispersion_extended_packed(
+        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
+        _ptr(mbox_c), first.data_ptr(), survived.data_ptr(), out.data_ptr(),
+        b, h, w, nwl, float(trusted_max), int(min_count), float(nsig_b),
+        float(nsig_s), _stream(dev),
+    )
+    dispersion_extended_packed_raw.launches += 1
+    cuda_build.check(rc, "dispersion_extended_packed kernels")
+    return out if image.dim() == 3 else out[0]
+
+
+dispersion_extended_packed_raw.launches = 0

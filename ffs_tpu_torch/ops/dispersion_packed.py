@@ -1,0 +1,192 @@
+"""Dispersion threshold -> packed strong words: CUDA kernel and plain version.
+
+Counterpart of :func:`ffs_tpu.ops.dispersion_pallas.dispersion_packed_raw`
+and its ``_pack_pcw`` bit pack.  The output is the combined-row contract the
+compaction stages read, one (B?, H, 2*nwl) int32 array with lanes [pc | w32]:
+
+* ``w32[..., h, j]`` packs the strong flags of columns 32j..32j+31 (bit t =
+  column 32j+t) as an int32 bit pattern, so bit 31 makes a word negative;
+  words past the image width are zero;
+* ``pc[..., h, j]`` is the inclusive count of strong pixels in row h
+  through word j, so ``pc[..., h, nwl-1]`` is the row total.
+
+``nwl = nwl_for_width(W)`` exactly as on the JAX side, because
+the shared host compaction (ffs_tpu.ops.compact_host) reads the same array.
+
+:func:`dispersion_packed_raw` picks by the image tensor's device: a CPU
+tensor takes the plain PyTorch version :func:`dispersion_packed_plain`
+(``ops.dispersion`` in float32, then :func:`pack_pcw`); a CUDA tensor
+launches the kernel in
+``csrc/dispersion_packed.cu`` or raises.  There is no fallback between the
+two.  ``dispersion_packed_raw.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ffs_tpu.constants import (
+    DEFAULT_MIN_COUNT,
+    DEFAULT_NSIG_B,
+    DEFAULT_NSIG_S,
+    KERNEL_RADIUS,
+)
+
+from . import dispersion as dops
+from .dispersion import box_sum
+
+
+def nwl_for_width(w: int, halo: int = KERNEL_RADIUS) -> int:
+    """Word lanes of the packed output for an image ``w`` columns wide whose
+    kernel pads each side by ``halo`` columns (3 dispersion, 10 extended):
+    ceil(wp/32) rounded up to 8 lanes, wp = the padded width rounded up to
+    128 (ffs_tpu.ops.dispersion_pallas._n_word_lanes)."""
+    wp = ((w + 2 * halo + 127) // 128) * 128
+    return ((wp // 32 + 7) // 8) * 8
+
+
+def mask_box_count(mask: torch.Tensor, radius: int = KERNEL_RADIUS) -> torch.Tensor:
+    """Per-pixel count of valid mask pixels in the (2r+1)^2 window, as u16.
+
+    Frame-invariant: computed once per collection and passed to the kernel
+    as ``mbox`` so it never re-sums the mask grid.
+    """
+    counts = box_sum((mask != 0).to(torch.int32), radius)
+    return counts.to(torch.int16).view(torch.uint16)  # counts <= (2r+1)^2
+
+
+def pack_pcw(strong: torch.Tensor, nwl: int) -> torch.Tensor:
+    """Dense bool strong plane (..., H, W) -> combined [pc | w32] int32 rows."""
+    w = strong.shape[-1]
+    need = nwl * 32
+    if w > need:
+        raise ValueError(f"width {w} needs more than {nwl} word lanes")
+    bits = torch.nn.functional.pad(strong.to(torch.int64), (0, need - w))
+    bits = bits.reshape(*strong.shape[:-1], nwl, 32)
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=strong.device),
+        torch.arange(32, dtype=torch.int64, device=strong.device),
+    )
+    words = (bits * weights).sum(dim=-1)
+    # int64 -> int32 keeps the low 32 bits: the i32 bit pattern of the word
+    w32 = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    pc = torch.cumsum(bits.sum(dim=-1), dim=-1).to(torch.int32)
+    return torch.cat([pc, w32], dim=-1)
+
+
+# pixel_type codes of the C entry points (csrc/common.cuh PixelType)
+PIXEL_TYPES = {torch.uint16: 0, torch.uint32: 1, torch.int32: 2}
+
+
+def _check_inputs(image, mask, mbox):
+    if image.dtype not in PIXEL_TYPES:
+        raise TypeError(f"image must be uint16, uint32 or int32, got {image.dtype}")
+    if image.dim() not in (2, 3):
+        raise ValueError(f"image must be (H, W) or (B, H, W), got {tuple(image.shape)}")
+    if tuple(mask.shape) != tuple(image.shape[-2:]):
+        raise ValueError(
+            f"mask shape {tuple(mask.shape)} != frame shape {tuple(image.shape[-2:])}"
+        )
+    if mbox is not None and tuple(mbox.shape) != tuple(mask.shape):
+        raise ValueError(
+            f"mbox shape {tuple(mbox.shape)} != mask shape {tuple(mask.shape)}; "
+            "build it with mask_box_count(mask)"
+        )
+
+
+def _cuda_args(image, mask, mbox):
+    """Validate a kernel call's tensors; returns (frames (B,H,W), mask, mbox)."""
+    dev = image.device
+    for name, t in (("mask", mask), ("mbox", mbox)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, image on {dev}")
+    if mask.dtype != torch.uint8:
+        raise TypeError(f"mask must be uint8 for the kernel, got {mask.dtype}")
+    if mbox is not None and mbox.dtype != torch.uint16:
+        raise TypeError(f"mbox must be uint16, got {mbox.dtype}")
+    frames = image if image.dim() == 3 else image[None]
+    return (
+        frames.contiguous(),
+        mask.contiguous(),
+        None if mbox is None else mbox.contiguous(),
+    )
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def dispersion_packed_plain(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+    signal_test: bool = True,
+) -> torch.Tensor:
+    """The kernel's plain PyTorch version, on any device: the float32
+    threshold of ``ops.dispersion``, then :func:`pack_pcw`."""
+    if signal_test:
+        strong = dops.dispersion(
+            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+            nsig_s=nsig_s, dtype=torch.float32,
+        )
+    else:
+        strong = dops.dispersion_first_pass(
+            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+            dtype=torch.float32,
+        )
+    return pack_pcw(strong, nwl_for_width(image.shape[-1]))
+
+
+def dispersion_packed_raw(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    mbox: torch.Tensor | None = None,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+    signal_test: bool = True,
+) -> torch.Tensor:
+    """Dispersion threshold -> (B?, H, 2*nwl) int32 [pc | w32] rows.
+
+    ``image`` (H, W) or (B, H, W) uint16, uint32 or int32 (CBF data);
+    ``mask`` (H, W) uint8; ``mbox`` the optional frame-invariant
+    :func:`mask_box_count`.
+    ``signal_test=False`` gives the extended algorithm's first pass.
+    """
+    _check_inputs(image, mask, mbox)
+    if image.device.type == "cpu":
+        return dispersion_packed_plain(
+            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+            nsig_s=nsig_s, signal_test=signal_test,
+        )
+    if image.device.type != "cuda":
+        raise ValueError(f"no kernel for device {image.device}")
+
+    from ..utils import cuda_build
+
+    frames, mask_c, mbox_c = _cuda_args(image, mask, mbox)
+    b, h, w = frames.shape
+    nwl = nwl_for_width(w)
+    out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=image.device)
+    rc = cuda_build.lib().ffs_dispersion_packed(
+        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
+        _ptr(mbox_c), out.data_ptr(), b, h, w, nwl, float(trusted_max),
+        int(min_count), float(nsig_b), float(nsig_s), int(signal_test),
+        _stream(image.device),
+    )
+    dispersion_packed_raw.launches += 1
+    cuda_build.check(rc, "dispersion_packed kernel")
+    return out if image.dim() == 3 else out[0]
+
+
+dispersion_packed_raw.launches = 0

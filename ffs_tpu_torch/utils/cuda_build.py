@@ -1,0 +1,121 @@
+"""Build and load the package's hand-written CUDA kernels (ffs_tpu_torch/csrc).
+
+Counterpart of :mod:`ffs_tpu.utils.native` for the GPU kernels: every
+``.cu``/``.cuh`` source under ``csrc/`` is compiled by ``nvcc`` into one
+shared library with a plain C interface, on first use, and loaded with
+``ctypes``.  The library lands in ``ffs_tpu_torch/_build/`` under a name
+keyed by a hash of the sources and the flags, so a stale binary can never
+shadow the sources after an edit or a checkout.
+
+The flags are part of the kernels' bit-parity contract with the plain
+PyTorch versions: ``--fmad=false`` keeps nvcc from contracting a multiply
+and an add into one FMA, and ``-prec-div``/``-prec-sqrt`` keep division and
+square root correctly rounded.  Never add ``--use_fast_math``.
+
+Unlike the host library there is no fallback: a CUDA tensor either runs
+its kernel or raises, so a failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "--fmad=false",
+    "-prec-div=true",
+    "-prec-sqrt=true",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+)
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    """nvcc from CUDA_HOME, the standard toolkit location, or PATH."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(pathlib.Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(pathlib.Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library for these sources exists; return
+    its path.  Raises RuntimeError with nvcc's output when the build fails."""
+    so_path = BUILD_DIR / f"libffs_kernels-{_digest()}.so"
+    if so_path.exists():
+        return so_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name and rename: concurrent processes never load
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so_path
+
+
+@functools.lru_cache(maxsize=1)
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    kernels = ctypes.CDLL(str(build()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    kernels.ffs_dispersion_packed.argtypes = [
+        p, i, p, p, p, i, i, i, i, f, i, f, f, i, p,
+    ]
+    kernels.ffs_dispersion_packed.restype = i
+    kernels.ffs_dispersion_extended_packed.argtypes = [
+        p, i, p, p, p, p, p, i, i, i, i, f, i, f, f, p,
+    ]
+    kernels.ffs_dispersion_extended_packed.restype = i
+    kernels.ffs_cuda_error_string.argtypes = [i]
+    kernels.ffs_cuda_error_string.restype = ctypes.c_char_p
+    return kernels
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib().ffs_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
