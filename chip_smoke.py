@@ -1,27 +1,42 @@
-"""Smoke run of the PyTorch/CUDA spotfinder on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the spotfinder and
+the integrator.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc.  It
-needs no network and no JAX (JAX is blocked from import).  Phases, each of
-which fails the run:
+needs no network, and neither JAX nor the JAX package (both are blocked from
+import).  Phases, each of which fails the run:
 
 1. device — a CUDA device must exist; prints the card's name and power limit;
 2. build — compiles every CUDA kernel from ``ffs_tpu_torch/csrc`` with nvcc;
-3. kernels — each kernel against its plain PyTorch version on the card, bit
-   for bit over the whole packed output, on full Eiger 16M frames (sample
-   images 2 and 5, a seeded Poisson frame with spots and module gaps, a u32
-   frame with 0xFFFFFFFF sentinels), with and without the mask box count;
-4. main path — the ``spotfinder`` CLI in-process on the six sample frames,
-   f32 (kernels) and f64, both algorithms, reading the pipe JSON and holding
-   the anchors (image 2: 9506 px / 9506 spots; image 5: 2388 px / 2311
-   spots, extended 3 px); the kernels' launch counters must rise;
+3. kernels — each dispersion kernel against its plain PyTorch version on the
+   card, bit for bit over the whole packed output, on full Eiger 16M frames
+   (sample images 2 and 5, a seeded Poisson frame with spots and module
+   gaps, a u32 frame with 0xFFFFFFFF sentinels), with and without the mask
+   box count;
+4. spotfinder main path — the ``spotfinder`` CLI in-process on the six
+   sample frames, f32 (kernels) and f64, both algorithms, reading the pipe
+   JSON and holding the anchors (image 2: 9506 px / 9506 spots; image 5:
+   2388 px / 2311 spots, extended 3 px); the kernels' launch counters must
+   rise;
 5. golden — the f32 pixel lists and host spot tables of images 2 and 5
-   against tests/data/bench_anchor_golden.npz (bench's comparison plus
-   peak_intensity);
+   against tests/data/bench_anchor_golden.npz (every column, peak_intensity
+   included);
 6. times — kernel and plain version per algorithm at Eiger 16M with CUDA
    events, the CLI's frames/s, and the processor's steady frames/s and
-   per-stage times on frames already in host memory.
+   per-stage times on frames already in host memory;
+7. integrator main path — a seeded synthetic rotation collection at Eiger
+   16M (thaumatin cell, 0.1 degree images, 40 of a 3600-image sweep) goes
+   through the ``integrator`` CLI's core on the card: prediction, bounding
+   boxes, the blocked Kabsch step in 2048-reflection chunks, backgrounds
+   and finalisation.  The accumulators must equal a second run with the
+   plain gathers and, for the first 256 reflections, the float64 oracle
+   (``integration/reference_kabsch``) exactly; the recovered intensities
+   must match the injected ones; both gather kernels' launch counters must
+   rise;
+8. gathers — each gather kernel against its plain version at the main
+   path's shapes, bit for bit, with windows at the contract's edges, and its
+   time beside the plain version's and one advanced-indexing call's.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -39,12 +54,28 @@ import re
 import subprocess
 import sys
 import time
-import types
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SIDE = 4362, 4148  # Eiger 16M (H, W)
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+F32_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
+# float32 operations per pixel the threshold needs, at least: I^2 (1), the
+# 7x7 window sums of I and I^2 done separably (2 x 12 adds) and the
+# dispersion test (~15: products, compares, two square roots); extended adds
+# the 11x11 sums of I and of the count (2 x 20 adds) and the mean test (~6)
+DISPERSION_OPS_PER_PX = {"dispersion_packed": 40, "dispersion_extended_packed": 86}
+
+# the integrator slice: an Eiger 16M at 200 mm, lambda 0.976 A, a thaumatin
+# cell, 0.1 degree images; 40 images of a 3600-image sweep, cut for time
+N_IMAGES = 40
+CELL = (57.78, 57.78, 150.0)
+SIGMA_B_DEG, SIGMA_M_DEG = 0.02, 0.05  # ~21x21-px shoeboxes ~4 images deep
+SPOT_COUNTS, SPOT_SIGMA_PX, SPOT_SIGMA_Z = 2000.0, 1.2, 0.5
+# reflection-image slices per second at the detector's 500 Hz:
+# 464 predictions per image, each ~4 images deep
+REAL_TIME_SLICES = 464 * 4 * 500
 
 
 def fail(msg: str) -> None:
@@ -75,7 +106,7 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
 
 def seeded_frames():
     """(name, frame, mask) test inputs at Eiger 16M besides the samples."""
-    from ffs_tpu.io import sample_data
+    from ffs_tpu_torch.io import sample_data
 
     rng = np.random.default_rng(20261016)
     h, w = SIDE
@@ -97,7 +128,7 @@ def phase_kernels(dev):
     """Every kernel against its plain version; returns per-kernel max error."""
     import torch
 
-    from ffs_tpu.io import sample_data
+    from ffs_tpu_torch.io import sample_data
     from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
     from ffs_tpu_torch.ops import dispersion_packed as dp
 
@@ -134,6 +165,38 @@ def phase_kernels(dev):
                 if err:
                     fail(f"{name} on {tag} differs from its plain version (max |diff| {err})")
     return max_err
+
+
+def check_golden(golden, tag: str, w: int, lin, inten, table) -> list[str]:
+    """One frame's pixel list and host spot table against the golden; the
+    mismatches as strings (none: bit-parity).  Integer columns (pixel
+    coordinates and intensities, pixel counts, boxes, peaks and their
+    intensity, the integer-valued intensity sums) must be equal; the two
+    centres of mass are float32 quotients of exact sums, so they get a
+    relative band of 1e-5 against the float64 golden."""
+    errs = []
+    y, x = lin // w, lin % w
+    if len(lin) != len(golden[f"{tag}_y"]):
+        return [f"{tag}: pixel count {len(lin)} != {len(golden[f'{tag}_y'])}"]
+    if not (np.array_equal(y, golden[f"{tag}_y"]) and np.array_equal(x, golden[f"{tag}_x"])):
+        errs.append(f"{tag}: strong-pixel coordinate list differs")
+    if not np.array_equal(inten.astype(np.int64), golden[f"{tag}_intensity"].astype(np.int64)):
+        errs.append(f"{tag}: strong-pixel intensities differ")
+    if table.n_spots != len(golden[f"{tag}_n_pixels"]):
+        return errs + [f"{tag}: spot count {table.n_spots} != {len(golden[f'{tag}_n_pixels'])}"]
+    for col in ("n_pixels", "x_min", "x_max", "y_min", "y_max", "peak_x", "peak_y",
+                "peak_intensity"):
+        got = np.asarray(getattr(table, col)).astype(np.int64)
+        if not np.array_equal(got, golden[f"{tag}_{col}"].astype(np.int64)):
+            errs.append(f"{tag}: column {col} differs")
+    got = np.asarray(table.sum_intensity).astype(np.float64)
+    if not np.array_equal(got, golden[f"{tag}_sum_intensity"].astype(np.float64)):
+        errs.append(f"{tag}: column sum_intensity differs")
+    for col in ("com_x", "com_y"):
+        got = np.asarray(getattr(table, col)).astype(np.float64)
+        if not np.allclose(got, golden[f"{tag}_{col}"].astype(np.float64), rtol=1e-5, atol=1e-4):
+            errs.append(f"{tag}: column {col} outside the float32 band")
+    return errs
 
 
 def run_cli(args: list[str]):
@@ -205,9 +268,8 @@ def phase_main_path():
 
 def phase_golden(dev):
     """f32 pixel lists + host spot tables of images 2 and 5 vs the golden."""
-    import bench
-    from ffs_tpu.io import sample_data
-    from ffs_tpu.ops.cc2d_host import cc2d
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.ops.cc2d_host import cc2d
     from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
 
     golden = np.load(ROOT / "tests" / "data" / "bench_anchor_golden.npz")
@@ -224,28 +286,25 @@ def phase_golden(dev):
         inten = res.pixels.intensity
         t = cc2d(lin, inten, w)
         s = t.n_spots
-        table = types.SimpleNamespace(
-            valid=np.ones(s, bool), z_min=np.zeros(s, np.int64), com_z=np.full(s, 0.5),
-            **{c: getattr(t, c) for c in (
-                "n_pixels", "x_min", "x_max", "y_min", "y_max", "peak_x", "peak_y",
-                "sum_intensity", "com_x", "com_y",
-            )},
-        )
-        errs = bench._check_anchor_bitparity(golden, tag, w, h + 1, 0, lin, inten, table)
-        if not np.array_equal(
-            t.peak_intensity.astype(np.int64), golden[f"{tag}_peak_intensity"].astype(np.int64)
-        ):
-            errs.append(f"{tag}: column peak_intensity differs")
+        errs = check_golden(golden, tag, w, lin, inten, t)
         if errs:
             fail("; ".join(errs))
         say(f"golden {tag}: {len(lin)} px, {s} spots, every column equal (incl. peak_intensity)")
 
 
+def bound_ms(nbytes: int, ops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take: compulsory bytes over the memory
+    rate or float32 operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_times(dev):
-    """Kernel and plain version at Eiger 16M (sample image 5), device ms."""
+    """Kernel and plain version at Eiger 16M (sample image 5), device ms,
+    and the kernel's bound from this frame's bytes and operations."""
     import torch
 
-    from ffs_tpu.io import sample_data
+    from ffs_tpu_torch.io import sample_data
     from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
     from ffs_tpu_torch.ops import dispersion_packed as dp
 
@@ -258,13 +317,17 @@ def phase_times(dev):
          dxp.dispersion_extended_packed_plain, dxp.mask_box_count_extended),
     ):
         mbox = mbox_fn(msk)
+        out_t = raw(img, msk, 65535.0, mbox=mbox)
+        nbytes = sum(t.numel() * t.element_size() for t in (img, msk, mbox, out_t))
+        bound = bound_ms(nbytes, DISPERSION_OPS_PER_PX[name] * img.numel())
         # plain, kernel, kernel, plain: the means of each pair
         p1 = cuda_ms(lambda: plain(img, msk, 65535.0), 10)
         k1 = cuda_ms(lambda: raw(img, msk, 65535.0, mbox=mbox), 50)
         k2 = cuda_ms(lambda: raw(img, msk, 65535.0, mbox=mbox), 50)
         p2 = cuda_ms(lambda: plain(img, msk, 65535.0), 10)
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        say(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per Eiger 16M frame")
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound)
+        say(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per Eiger 16M frame; "
+            f"bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} B)")
     return out
 
 
@@ -273,7 +336,7 @@ def phase_processor(dev):
     memory (no sample generation in the loop), and one frame's stages."""
     import torch
 
-    from ffs_tpu.io import sample_data
+    from ffs_tpu_torch.io import sample_data
     from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
 
     h, w = SIDE
@@ -302,11 +365,351 @@ def phase_processor(dev):
     return out
 
 
+def eiger_experiment(seed: int = 20261016):
+    """The integrator's configuration: a thaumatin crystal in a seeded
+    orientation on an Eiger 16M at 200 mm, lambda 0.976 A, N_IMAGES images
+    of 0.1 degrees."""
+    from ffs_tpu_torch.models.crystal import Crystal
+    from ffs_tpu_torch.models.experiment import Experiment
+    from ffs_tpu_torch.models.geometry import Goniometer, MonochromaticBeam, Scan, simple_panel
+
+    rng = np.random.default_rng(seed)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    cell = np.diag(CELL) @ q.T  # rows: the rotated real-space axes
+    h, w = SIDE
+    return Experiment(
+        beam=MonochromaticBeam(wavelength=0.976),
+        panel=simple_panel(200.0, (w / 2, h / 2), (0.075, 0.075), (w, h)),
+        goniometer=Goniometer(),
+        scan=Scan(image_range=(1, N_IMAGES), oscillation=(0.0, 0.1)),
+        crystal=Crystal(*cell),
+    )
+
+
+class HostFrames:
+    """A frame reader over u16 frames held in host memory."""
+
+    def __init__(self, frames: np.ndarray, mask: np.ndarray):
+        self.frames, self.mask = frames, mask
+
+    def get_image(self, n):
+        return self.frames[n]
+
+    def get_mask(self):
+        return self.mask
+
+    def get_number_of_images(self):
+        return len(self.frames)
+
+
+def synth_collection(expt, pred, mask: np.ndarray, dev, seed: int = 7):
+    """Seeded frames of a rotation collection: Poisson(4) background drawn on
+    the device, plus a Gaussian spot (SPOT_SIGMA_PX wide, SPOT_SIGMA_Z
+    images deep, SPOT_COUNTS in total) at every prediction, built in a
+    15x15 window per spot and image, as tests/test_integration.py builds
+    them on whole frames; gaps are zero.  Returns (u16 frames on the host,
+    the counts injected per reflection)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w, h = expt.panel.image_size
+    n_img = expt.scan.image_range[1] - expt.scan.image_range[0] + 1
+    px, py, pz = (torch.from_numpy(c).to(dev) for c in pred.xyzcal_px.T)
+    norm = 2 * np.pi * SPOT_SIGMA_PX**2 * np.sqrt(2 * np.pi) * SPOT_SIGMA_Z
+    half = 7
+    off = torch.arange(-half, half + 1, device=dev)
+    ix = torch.floor(px).long()[:, None, None] + off[None, None, :]  # (N, 1, 15)
+    iy = torch.floor(py).long()[:, None, None] + off[None, :, None]  # (N, 15, 1)
+    g = torch.exp(-((ix - px[:, None, None]) ** 2 + (iy - py[:, None, None]) ** 2)
+                  / (2 * SPOT_SIGMA_PX**2))
+    inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    g = torch.where(inside, g, 0.0)
+    ixc, iyc = ix.clamp(0, w - 1).expand_as(g), iy.clamp(0, h - 1).expand_as(g)
+    keep = torch.from_numpy(mask != 0).to(dev)
+    injected = torch.zeros(len(px), dtype=torch.float64, device=dev)
+    frames = np.empty((n_img, h, w), np.uint16)
+    for z in range(n_img):
+        fz = torch.exp(-((z + 0.5 - (pz + 0.5)) ** 2) / (2 * SPOT_SIGMA_Z**2))
+        sel = torch.nonzero(fz >= 1e-3).flatten()
+        spot = SPOT_COUNTS * fz[sel, None, None] * g[sel] / norm
+        injected.index_add_(0, sel, spot.sum(dim=(1, 2)))
+        frame = torch.poisson(torch.full((h, w), 4.0, device=dev, dtype=torch.float64), gen)
+        frame.index_put_((iyc[sel], ixc[sel]), spot, accumulate=True)
+        frame = torch.where(keep, torch.round(frame), 0.0).clamp_(0, 65535)
+        frames[z] = frame.to(torch.int32).cpu().numpy().astype(np.uint16)
+    return frames, injected.cpu().numpy()
+
+
+@contextlib.contextmanager
+def plain_gathers():
+    """Route the integrator's window gathers to their plain PyTorch versions
+    (on any device) for the duration, for a reference run on the card."""
+    from ffs_tpu_torch.integration import kabsch
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    saved = kabsch.window_gather_planes, kabsch.window_gather
+    kabsch.window_gather_planes, kabsch.window_gather = (
+        wg.window_gather_planes_plain, wg.window_gather_plain)
+    try:
+        yield
+    finally:
+        kabsch.window_gather_planes, kabsch.window_gather = saved
+
+
+ACC_FIELDS = ("fg_sum", "fg_count", "sum_ix", "sum_iy", "sum_iz", "bg_hist", "bg_overflow",
+              "bg_count")
+
+
+def phase_integrator(dev):
+    """The integrator CLI's core on a seeded Eiger 16M collection; returns
+    (collection, run output, stage seconds, main-path gather launches)."""
+    import types
+
+    import torch
+
+    from ffs_tpu_torch.integration import kabsch
+    from ffs_tpu_torch.integration.reference_kabsch import integrate_reference
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.models.reflection_table import INTEGRATED_SUM
+    from ffs_tpu_torch.ops import window_gather as wg
+    from ffs_tpu_torch.pipeline.integrator import integrate_experiment
+    from ffs_tpu_torch.prediction.rotation import predict_rotation
+
+    # set-up: the collection's frames, with spots at the card's predictions
+    t0 = time.perf_counter()
+    expt = eiger_experiment()
+    h, w = SIDE
+    mask = sample_data.generate_mask()
+    pred = predict_rotation(expt, device=dev)
+    frames, injected = synth_collection(expt, pred, mask, dev)
+    reader = HostFrames(frames, mask)
+    say(f"integrator set-up: {N_IMAGES} images {h}x{w}, {len(pred.hkl)} predictions "
+        f"({len(pred.hkl) / N_IMAGES:.0f} per image), {time.perf_counter() - t0:.1f} s")
+
+    # the main path, with the gather counters read just after
+    stage_t: dict[str, float] = {}
+    t_last = time.perf_counter()
+
+    def mark(stage: str) -> None:
+        nonlocal t_last
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_t[stage] = stage_t.get(stage, 0.0) + (now - t_last)
+        t_last = now
+
+    buf = io.StringIO()
+    wg.window_gather_planes.launches = 0
+    wg.window_gather.launches = 0
+    with contextlib.redirect_stdout(buf):
+        out = integrate_experiment(
+            expt, {}, reader, device=dev, sigma_b=np.deg2rad(SIGMA_B_DEG),
+            sigma_m=np.deg2rad(SIGMA_M_DEG), profile=True, mark=mark,
+        )
+    mark("finalize")
+    launches = {"window_gather_planes": wg.window_gather_planes.launches,
+                "window_gather": wg.window_gather.launches}
+    log = buf.getvalue()
+    for line in log.splitlines():
+        if line.startswith(("Monochromatic", "Integrating", "Summation", "Intensity",
+                            "Mean I/sigma", "Background estimate", "min_zeta", "Shoebox fill")):
+            say(f"integrator: {line}")
+    integ = out.integrator
+    say(f"integrator: box {integ.box_w}x{integ.box_h}, {integ.max_active} reflections per "
+        f"chunk, {integ.chunk_setups} chunk set-ups, {integ.block_steps} block steps; "
+        f"gather launches {launches}")
+
+    # (d) the main path went through both kernels: the field and mask
+    # windows once per chunk set-up, the frame windows once per block step
+    want = {"window_gather_planes": integ.chunk_setups + integ.block_steps,
+            "window_gather": integ.chunk_setups}
+    if launches != want or min(launches.values()) == 0:
+        fail(f"integrator gather launches {launches}, expected {want} (all above 0)")
+    cols = out.columns
+    if not (np.array_equal(cols["miller_index"], pred.hkl.astype(np.int32))
+            and np.array_equal(cols["s1"], pred.s1)):
+        fail("the integrator's predictions differ from the set-up's on the same card")
+
+    # (a) bit for bit against a second run with the plain gathers
+    acc_plain = kabsch.Accumulators.zeros(len(cols["s1"]))
+    z0 = expt.scan.image_range[0]
+    image_numbers = range(z0 - 1, z0 - 1 + N_IMAGES)
+    with plain_gathers():
+        integ.integrate(reader, image_numbers, acc_plain)
+    for name in ACC_FIELDS:
+        if not np.array_equal(getattr(out.acc, name), getattr(acc_plain, name)):
+            fail(f"integrator accumulator {name} differs from the plain-gather run")
+    say("integrator: all eight accumulators equal the plain-gather run bit for bit")
+
+    # (b) the first reflections against the float64 oracle, exactly
+    k = 256
+    osc_start, osc_width = expt.scan.oscillation
+    ref = integrate_reference(
+        frames=frames, det_mask=mask, bboxes=integ.bboxes[:k], s1=integ.s1[:k],
+        phi=integ.phi[:k], s0=expt.beam.s0, rotation_axis=expt.goniometer.rotation_axis,
+        panel=expt.panel, wavelength=expt.beam.wavelength,
+        phi_lows=np.deg2rad(osc_start + (np.asarray(image_numbers) - (z0 - 1)) * osc_width),
+        d_osc=float(np.deg2rad(osc_width)), z_values=np.asarray(image_numbers, np.float64),
+        delta_b=integ._delta_b, delta_m=integ._delta_m, algorithm=integ.algorithm,
+    )
+    for name in ACC_FIELDS:
+        if not np.array_equal(getattr(out.acc, name)[:k], ref[name]):
+            fail(f"integrator accumulator {name} differs from the float64 oracle "
+                 f"on the first {k} reflections")
+    if ref["fg_count"].sum() == 0:
+        fail("the oracle's reflections have no foreground")
+    say(f"integrator: the first {k} reflections equal the float64 oracle exactly "
+        f"({int(ref['fg_count'].sum())} foreground pixels)")
+
+    # (c) the injected intensities come back, away from the edges
+    x, y, z = pred.xyzcal_px.T
+    inner = (x > 20) & (x < w - 20) & (y > 20) & (y < h - 20) & (z > 1.5) & (z < N_IMAGES - 1.5)
+    inner &= mask[y.astype(int), x.astype(int)] != 0
+    valid = (cols["flags"] & np.uint64(INTEGRATED_SUM)) != 0
+    share = float(valid[inner].mean())
+    ratio = float(np.median(cols["intensity.sum.value"][inner & valid]
+                            / injected[inner & valid]))
+    say(f"integrator: {int(inner.sum())} reflections away from edges and gaps: valid share "
+        f"{share:.4f}, median I/injected {ratio:.4f}")
+    if not (share > 0.9 and ratio > 0.7):
+        fail(f"integrated intensities off: valid share {share:.4f}, median ratio {ratio:.4f}")
+
+    profile_integrate(integ, reader, image_numbers[:12])
+
+    z_lo = np.clip(integ.bboxes[:, 4], 0, N_IMAGES)
+    z_hi = np.clip(integ.bboxes[:, 5], 0, N_IMAGES)
+    slices = int(np.maximum(z_hi - z_lo, 0).sum())
+    col = types.SimpleNamespace(expt=expt, pred=pred, frames=frames, mask=mask, slices=slices)
+    return col, out, stage_t, launches
+
+
+def profile_integrate(integ, reader, image_numbers) -> None:
+    """Where integrate()'s time goes: torch.profiler over a run on the first
+    images (outside the main path's counted run): the device's busy share
+    of the wall time and the device time by kernel and copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ffs_tpu_torch.integration import kabsch
+
+    acc = kabsch.Accumulators.zeros(len(integ.s1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        integ.integrate(reader, image_numbers, acc)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels and copies; the host ops that
+    # launched them repeat their time, the profiler's own buffer requests
+    # are not the program's)
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")]
+    busy_ms = sum(r[0] for r in rows)
+    if not rows:
+        say("integrator profile: the profiler saw no device time (not measured)")
+        return
+    say(f"integrator profile over {len(image_numbers)} images ({integ.chunk_setups} chunk "
+        f"set-ups and {integ.block_steps} block steps so far): wall {wall_ms:.1f} ms, device "
+        f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    for ms, count, key in sorted(rows, reverse=True)[:10]:
+        say(f"    {ms:9.2f} ms {count:6d}x  {key[:90]}")
+
+
+def gather_cases(integ, frames_host):
+    """(name, wrapper, plain, image, bh, y0, x0) at the main path's shapes:
+    the first chunk's windows, with the contract's edges (x0 = Wp-129 and
+    the bottom-most y0) in the first two windows."""
+    import torch
+
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    a = integ.max_active
+    order = np.argsort(integ.bboxes[:, 4], kind="stable")[:a]
+    x0 = np.resize(integ.bboxes[order, 0], a)
+    y0 = np.resize(integ.bboxes[order, 2], a)
+    frames = integ.pad_frames(
+        torch.from_numpy(np.stack(frames_host[: integ.frame_block])).to(integ.device))
+    cases = []
+    for name, fn, plain, img, bh in (
+        ("frames", wg.window_gather_planes, wg.window_gather_planes_plain, frames, integ.box_h),
+        ("corner field", wg.window_gather_planes, wg.window_gather_planes_plain,
+         integ.corner_field_f32(), integ.box_h + 8),
+        ("mask", wg.window_gather, wg.window_gather_plain, integ._mask_canvas, integ.box_h),
+    ):
+        hp, wp = img.shape[-2:]
+        yy, xx = y0.copy(), x0.copy()
+        xx[0], yy[1] = wp - 129, hp - bh
+        cases.append((name, fn, plain, img, bh, yy, xx))
+    return cases
+
+
+def phase_gathers(dev, integ, frames_host):
+    """Both gather kernels against their plain versions at the main path's
+    shapes, bit for bit, with times; returns {kernel: figures} for the
+    summary (the frame windows for the planes kernel)."""
+    import torch
+
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    out = {}
+    for name, fn, plain, img, bh, y0, x0 in gather_cases(integ, frames_host):
+        want = plain(img, y0, x0, bh=bh)
+        got = fn(img, y0, x0, bh=bh)
+        torch.cuda.synchronize()
+        err = int((got.view(torch.int32).to(torch.int64)
+                   - want.view(torch.int32).to(torch.int64)).abs().max())
+        say(f"gather {name:12s} {tuple(got.shape)} {str(got.dtype):13s} bit-equal {err == 0}")
+        if err or got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"the {name} gather differs from its plain version (max |bit diff| {err})")
+        # the kernel alone: offsets on the card and the output allocated once
+        # (the wrapper adds the contract check and the offsets' upload)
+        entry = "ffs_window_gather_planes" if img.dim() == 3 else "ffs_window_gather"
+        y0_d, x0_d = wg._device_offsets(y0, x0, dev)
+        kernel = lambda: wg._launch(entry, img, y0_d, x0_d, bh, got)  # noqa: E731
+        rows, cols = wg.window_index(y0, x0, bh, img.device)
+        if img.dim() == 3:
+            library = lambda: img[:, rows, cols]  # noqa: E731
+        else:
+            library = lambda: img[rows, cols]  # noqa: E731
+        p1 = cuda_ms(lambda: plain(img, y0, x0, bh=bh), 10)
+        k1 = cuda_ms(kernel, 50)
+        lib_ms = cuda_ms(library, 20)
+        wrapper_ms = cuda_ms(lambda: fn(img, y0, x0, bh=bh), 20)
+        k2 = cuda_ms(kernel, 50)
+        p2 = cuda_ms(lambda: plain(img, y0, x0, bh=bh), 10)
+        # compulsory bytes: the windows overlap, so the image elements under
+        # their union, read once; each window element written once; the two
+        # offset arrays read once
+        covered = torch.zeros(img.shape[-2:], dtype=torch.bool, device=dev)
+        covered[rows, cols] = True
+        planes = img.shape[0] if img.dim() == 3 else 1
+        read = int(covered.sum()) * planes * img.element_size()
+        written = got.numel() * got.element_size()
+        nbytes = read + written + 2 * 4 * len(y0)
+        bound = bound_ms(nbytes)
+        say(f"time gather {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+            f"one advanced-indexing call {lib_ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, "
+            f"bound {bound[0]:.4f} ms ({read} B read under the windows' union, {written} B "
+            f"written, {nbytes} B in all); {nbytes / ((k1 + k2) / 2) / 1e9:.3f} TB/s")
+        key = fn.__name__
+        if key not in out:  # the frames for the planes kernel, the mask for the other
+            out[key] = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                        "bound": bound, "library_ms": lib_ms}
+        else:
+            out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
+    return out
+
+
 def main() -> int:
-    # the smoke proves the port runs without JAX: any import of it fails
-    sys.modules["jax"] = None
-    if not (ROOT / "ffs_tpu_torch").is_dir() or not (ROOT / "ffs_tpu").is_dir():
-        fail(f"run from the root of a checkout: no ffs_tpu_torch/ffs_tpu beside {__file__}")
+    # the smoke proves the port runs on its own: any import of JAX, of the
+    # JAX package or of its benchmark fails
+    for name in ("jax", "ffs_tpu", "bench"):
+        sys.modules[name] = None
+    if not (ROOT / "ffs_tpu_torch").is_dir():
+        fail(f"run from the root of a checkout: no ffs_tpu_torch beside {__file__}")
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -349,12 +752,36 @@ def main() -> int:
         say(f"cli {run}: {cli_fps} frames/s (CLI's own figure; run() {seconds:.2f} s "
             f"incl. set-up and host sample generation) on {card}")
 
+    # phase 7: the integrator's main path
+    col, integ_run, stage_t, launches_int = phase_integrator(dev)
+    launches.update(launches_int)
+    kabsch_s = stage_t["kabsch"]
+    say(f"integrator stage breakdown on {card}:")
+    for stage, dt in stage_t.items():
+        say(f"    {stage:>14s}: {dt * 1000:8.1f} ms")
+    say(f"integrate(): {col.slices} reflection-image slices in {kabsch_s:.3f} s = "
+        f"{col.slices / kabsch_s:.0f} slices/s (real-time bar {REAL_TIME_SLICES}) on {card}")
+
+    # phase 8: the gathers against their plain versions, with times
+    gathers = phase_gathers(dev, integ_run.integrator, col.frames)
+    say(f"gather times above on {card}")
+
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
         "dispersion_extended_packed": ("ffs_tpu_torch/csrc/dispersion_extended_packed.cu",
                                        "ffs_tpu/ops/dispersion_extended_pallas.py:173"),
+        "window_gather_planes": ("ffs_tpu_torch/csrc/window_gather.cu",
+                                 "ffs_tpu/ops/window_gather.py:39"),
+        "window_gather": ("ffs_tpu_torch/csrc/window_gather.cu",
+                          "ffs_tpu/ops/window_gather.py:460"),
     }
+    figures = {
+        name: {"max_abs_err": max_err[name], "ms": t[0], "plain_ms": t[1],
+               "bound": (t[2], t[3]), "library_ms": None}
+        for name, t in times.items()
+    }
+    figures.update(gathers)
     summary = {"kernels": [
         {
             "name": name,
@@ -362,9 +789,12 @@ def main() -> int:
             "source": src,
             "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": max_err[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
+            "max_abs_err": figures[name]["max_abs_err"],
+            "ms": figures[name]["ms"],
+            "plain_ms": figures[name]["plain_ms"],
+            "bound_ms": figures[name]["bound"][0],
+            "bound_by": figures[name]["bound"][1],
+            "library_ms": figures[name]["library_ms"],
         }
         for name, (src, replaces) in sources.items()
     ]}

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ffs_tpu.constants import (
+from ..constants import (
     DEFAULT_MIN_COUNT,
     DEFAULT_NSIG_B,
     DEFAULT_NSIG_S,

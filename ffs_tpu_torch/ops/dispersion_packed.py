@@ -11,7 +11,7 @@ compaction stages read, one (B?, H, 2*nwl) int32 array with lanes [pc | w32]:
   through word j, so ``pc[..., h, nwl-1]`` is the row total.
 
 ``nwl = nwl_for_width(W)`` exactly as on the JAX side, because
-the shared host compaction (ffs_tpu.ops.compact_host) reads the same array.
+the host compaction (ops.compact_host) reads the same array.
 
 :func:`dispersion_packed_raw` picks by the image tensor's device: a CPU
 tensor takes the plain PyTorch version :func:`dispersion_packed_plain`
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ffs_tpu.constants import (
+from ..constants import (
     DEFAULT_MIN_COUNT,
     DEFAULT_NSIG_B,
     DEFAULT_NSIG_S,

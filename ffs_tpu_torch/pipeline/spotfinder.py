@@ -5,8 +5,8 @@ surface, JSON-over-pipe protocol, scraped log lines (``Thread .. finished
 image .. with .. strong pixels``, ``Calculated N spots``, ``Filtered N spots
 with size < K pixels``), exit-code-32 bit-depth renegotiation, ``--validate``,
 ``--profile``, streaming 3D merge and ``results_ffs.h5``.  The reader,
-algorithm-name and validation helpers are the JAX CLI's own (they touch no
-framework).  Not ported yet: ``--batch`` and ``--decode-backend device``
+algorithm-name and validation helpers are copies of the JAX CLI's (they
+touch no framework).  Not ported yet: ``--batch`` and ``--decode-backend device``
 (both print the JAX CLI's fallback notice and run per frame) and
 ``--jax-profile``.
 
@@ -26,11 +26,87 @@ from collections import deque
 
 import numpy as np
 
-from ffs_tpu.pipeline.spotfinder import (
-    _DispersionAlgorithm,
-    _make_reader,
-    validate_strong_pixels,
-)
+
+def _make_reader(args):
+    from ..io.sample_data import SampleReader
+
+    if args.sample or (not args.file and os.getenv("H5READ_IMPLICIT_SAMPLE")):
+        return SampleReader(num_images=args.images)
+    path = args.file
+    deadline = time.monotonic() + args.timeout
+    while not os.path.exists(path) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    if not os.path.exists(path):
+        print(f"Timeout waiting for {path}")
+        sys.exit(1)
+    if os.path.isdir(path):
+        from ..io import shm
+
+        while not shm.is_ready_for_read(path) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        return shm.SHMRead(path)
+    if path.endswith(".cbf"):
+        if args.images is None:
+            print("Error: CBF reading must specify --images")
+            sys.exit(1)
+        from ..io.cbf import CBFRead
+
+        return CBFRead(path, args.images, args.start_index)
+    from ..io.nexus import NexusReader
+
+    return NexusReader(path)
+
+
+class _DispersionAlgorithm:
+    def __init__(self, name: str):
+        low = name.lower()
+        if low == "dispersion":
+            self.pretty = "Dispersion"
+        elif low == "dispersion_extended":
+            self.pretty = "Dispersion Extended"
+        else:
+            raise SystemExit(f"Invalid algorithm specified: {name}")
+        self.name = low
+
+
+def validate_strong_pixels(
+    image_host: np.ndarray,
+    mask: np.ndarray,
+    trusted_max: float,
+    algorithm: str,
+    linear_index: np.ndarray,
+    height: int,
+    width: int,
+    image_num: int,
+) -> tuple[bool, str]:
+    """Pixel-exact validation of a frame's strong-pixel set against the
+    standalone DIALS-equivalent oracle (:mod:`..ops.reference`).
+
+    Matches the reference's per-pixel compare_results scan (reference:
+    spotfinder/spotfinder.cc:1011-1053): equal counts with swapped pixels is
+    a MISMATCH, and the first differing coordinate is reported.
+    """
+    from ..ops import reference as ref
+
+    if algorithm == "dispersion":
+        want = ref.dispersion(image_host, mask, trusted_max)
+    else:
+        want = ref.dispersion_extended(image_host, mask, trusted_max)
+    want = np.asarray(want, dtype=bool)
+    got = np.zeros((height, width), dtype=bool)
+    got.reshape(-1)[np.asarray(linear_index)] = True
+    got_n = int(got.sum())
+    if np.array_equal(got, want):
+        return True, (
+            f"Thread  0, Image {image_num:4d}: Compared: Match {got_n} px"
+        )
+    diff = got ^ want
+    my, mx = np.unravel_index(int(np.argmax(diff)), diff.shape)
+    return False, (
+        f"Thread  0, Image {image_num:4d}: Compared: "
+        f"Mismatch ({got_n} px from kernel); first differing pixel at "
+        f"x={mx} y={my} (kernel={bool(got[my, mx])}, dials={bool(want[my, mx])})"
+    )
 
 
 def _env_choice(name: str, default: str, choices: tuple[str, ...]) -> str:
@@ -49,7 +125,7 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
     group.add_argument("--sample", action="store_true", help="Use generated test data")
     group.add_argument("file", nargs="?", default="", metavar="FILE.nxs")
     p.add_argument("--version", action="version", version=version)
-    from ffs_tpu.utils.cli import add_common_arguments
+    from ..utils.cli import add_common_arguments
 
     add_common_arguments(p)
     p.add_argument("--list-devices", action="store_true")
@@ -129,10 +205,10 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
 
 
 def run(argv=None, default_pixel_depth: int = 16) -> int:
-    from ffs_tpu.models.geometry import Scan, simple_panel
-    from ffs_tpu.models.reflection_table import ReflectionTable
-    from ffs_tpu.ops import cc3d
-    from ffs_tpu.utils.cli import apply_verbosity, expand_common_args
+    from ..models.geometry import Scan, simple_panel
+    from ..models.reflection_table import ReflectionTable
+    from ..ops import cc3d
+    from ..utils.cli import apply_verbosity, expand_common_args
 
     from .. import __version__
     from ..spotfind import SpotfindConfig, SpotfindProcessor
@@ -344,7 +420,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
                 lin = res.pixels.linear_index
                 for k in range(len(lin)):
                     out.write(f"{lin[k] % width:4d}, {lin[k] // width:4d}\n")
-            from ffs_tpu.utils.writeout import write_image_png
+            from ..utils.writeout import write_image_png
 
             strong_img = np.zeros((height, width), dtype=bool)
             strong_img.reshape(-1)[res.pixels.linear_index] = True

@@ -11,10 +11,10 @@ per-pixel arrays.  Three forms of the step, chosen by the configuration:
   The f64 CLI default runs here.
 * **tiered** — the packed kernel returns the frame's exact strong-pixel
   count first; compaction then runs at the smallest capacity tier that
-  holds it, and the host C++ CC (ffs_tpu.ops.cc2d_host) labels.  The f32
+  holds it, and the host C++ CC (ops.cc2d_host) labels.  The f32
   kernel path runs here.
 * **hostcompact** — the device stops at the packed words; the host expands
-  the set bits against its own frame copy (ffs_tpu.ops.compact_host).
+  the set bits against its own frame copy (ops.compact_host).
 
 The processor carries an explicit ``torch.device``; nothing here reads
 global device state.  Batched collection is not ported yet
@@ -31,14 +31,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ffs_tpu.constants import (
+from .constants import (
     DEFAULT_MAX_PEAK_CENTROID_SEPARATION,
     DEFAULT_MIN_COUNT,
     DEFAULT_MIN_SPOT_SIZE,
     DEFAULT_NSIG_B,
     DEFAULT_NSIG_S,
 )
-from ffs_tpu.ops import cc3d
+from .ops import cc3d
 
 from .ops import connected_components as cc
 from .ops import dispersion as dops
@@ -361,7 +361,7 @@ class SpotfindProcessor:
         """Host-compaction epilogue: copy the packed words to the host,
         expand the set bits against the host frame, label + tabulate there.
         ``timings`` (profiled path) receives 'compact' and 'post' ms."""
-        from ffs_tpu.ops.compact_host import compact_pcw_host
+        from .ops.compact_host import compact_pcw_host
 
         if n > self.config.max_strong_pixels:
             raise _capacity_error(
@@ -382,7 +382,7 @@ class SpotfindProcessor:
 
     def _collect_host(self, image_number: int, pixels, want_com: bool) -> FrameResult:
         """Label + tabulate on the host (C++ union-find over ~3k pixels)."""
-        from ffs_tpu.ops.cc2d_host import cc2d, filter_spots_host
+        from .ops.cc2d_host import cc2d, filter_spots_host
 
         cfg = self.config
         n = int(pixels.count)

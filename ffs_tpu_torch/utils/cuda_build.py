@@ -1,9 +1,9 @@
 """Build and load the package's hand-written CUDA kernels (ffs_tpu_torch/csrc).
 
-Counterpart of :mod:`ffs_tpu.utils.native` for the GPU kernels: every
-``.cu``/``.cuh`` source under ``csrc/`` is compiled by ``nvcc`` into one
-shared library with a plain C interface, on first use, and loaded with
-``ctypes``.  The library lands in ``ffs_tpu_torch/_build/`` under a name
+Counterpart of :mod:`.native` for the GPU kernels: every ``.cu`` source
+under ``csrc/`` is compiled by its own ``nvcc``, all started together, and
+the objects are linked into one shared library with a plain C interface, on
+first use, and loaded with ``ctypes``.  The library lands in ``ffs_tpu_torch/_build/`` under a name
 keyed by a hash of the sources and the flags, so a stale binary can never
 shadow the sources after an edit or a checkout.
 
@@ -38,7 +38,6 @@ NVCC_FLAGS = (
     "--fmad=false",
     "-prec-div=true",
     "-prec-sqrt=true",
-    "-shared",
     "-Xcompiler", "-fPIC",
 )
 
@@ -77,22 +76,35 @@ def build() -> pathlib.Path:
     if so_path.exists():
         return so_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: concurrent processes never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objects = []
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            objects.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failures = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        tmp = os.path.join(work, so_path.name)
+        cmd = [nvcc, "-shared", "-o", tmp, *objects]
+        link = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
+                f"nvcc link failed (exit {link.returncode}): {' '.join(cmd)}\n"
+                f"{link.stdout}\n{link.stderr}"
             )
+        # link to a private name and rename: concurrent processes never
+        # load a half-written library
         os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return so_path
 
 
@@ -109,6 +121,10 @@ def lib() -> ctypes.CDLL:
         p, i, p, p, p, p, p, i, i, i, i, f, i, f, f, p,
     ]
     kernels.ffs_dispersion_extended_packed.restype = i
+    kernels.ffs_window_gather_planes.argtypes = [p, i, i, i, p, p, i, i, p, p]
+    kernels.ffs_window_gather_planes.restype = i
+    kernels.ffs_window_gather.argtypes = [p, i, i, p, p, i, i, p, p]
+    kernels.ffs_window_gather.restype = i
     kernels.ffs_cuda_error_string.argtypes = [i]
     kernels.ffs_cuda_error_string.restype = ctypes.c_char_p
     return kernels

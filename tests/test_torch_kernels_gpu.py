@@ -116,3 +116,78 @@ def test_processor_on_gpu_matches_cpu(cuda, cfg):
         for name in ("linear_index", "intensity", "root"):
             np.testing.assert_array_equal(getattr(a.pixels, name), getattr(b.pixels, name))
         assert a.n_strong_pixels > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("planes", [1, 4, 6])
+def test_window_gathers_match_plain(cuda, dtype, planes):
+    """Both gather kernels against their plain versions, bit for bit (the
+    float32 case compares the raw bits), with windows at the contract's
+    edges: the last legal column start Wp-129 and the bottom-most row."""
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    rng = np.random.default_rng(planes)
+    hp, wp, bh, a = 70, 384, 24, 300
+    img = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (planes, hp, wp), dtype=np.int64)
+                           .astype(np.int32)).to(cuda)
+    img = img.view(dtype)  # float32: arbitrary bit patterns, NaNs included
+    y0 = rng.integers(0, hp - bh + 1, a)
+    x0 = rng.integers(0, wp - 128, a)
+    y0[:2], x0[:2] = [hp - bh, 0], [wp - 129, wp - 129]
+    if planes == 1:
+        fn, plain, src = wg.window_gather, wg.window_gather_plain, img[0]
+    else:
+        fn, plain, src = wg.window_gather_planes, wg.window_gather_planes_plain, img
+    want = plain(src, y0, x0, bh=bh)
+    assert torch.equal(want.cpu().view(torch.int32), fn(src.cpu(), y0, x0, bh=bh).view(torch.int32))
+    before = fn.launches
+    got = fn(src, y0, x0, bh=bh)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError, match="x0"):
+        fn(src, y0, np.full(a, wp - 128), bh=bh)
+
+
+def test_kabsch_integrate_on_gpu_matches_cpu(cuda):
+    """The integrator's blocked step on the card (gather kernels) against
+    the same step on the CPU (plain gathers): the eight accumulators equal."""
+    from ffs_tpu_torch.integration import kabsch as kb
+    from ffs_tpu_torch.models.geometry import Goniometer, MonochromaticBeam, Scan, simple_panel
+
+    rng = np.random.default_rng(4)
+    w, h, nf, a = 300, 200, 6, 150
+    panel = simple_panel(100.0, (w / 2, h / 2), (0.1, 0.1), (w, h))
+    beam = MonochromaticBeam(wavelength=0.976)
+    scan = Scan(image_range=(1, nf), oscillation=(0.0, 0.2))
+    x, y = rng.uniform(12, w - 12, a), rng.uniform(12, h - 12, a)
+    lab = panel.get_lab_coord(*panel.px_to_mm(x, y))
+    s1 = lab / np.linalg.norm(lab, axis=1, keepdims=True) / beam.wavelength
+    z0 = rng.integers(0, nf - 2, a)
+    bboxes = np.stack([x - 9, x + 9, y - 9, y + 9, z0, z0 + 3], axis=1).astype(np.int64)
+    frames = rng.poisson(5.0, (nf, h, w)).astype(np.uint16)
+    mask = np.ones((h, w), np.uint8)
+    mask[90:95] = 0
+
+    class Reader:
+        def get_image(self, n):
+            return frames[n]
+
+        def get_mask(self):
+            return mask
+
+    accs = []
+    for dev in (cuda, torch.device("cpu")):
+        integ = kb.KabschIntegrator(
+            panel=panel, beam=beam, gonio=Goniometer(), scan=scan, s1=s1,
+            phi=np.deg2rad(0.2 * (z0 + 1.5)), bboxes=bboxes, delta_b=np.deg2rad(0.5),
+            delta_m=np.deg2rad(0.3), max_active=64, device=dev,
+        )
+        acc = kb.Accumulators.zeros(a)
+        integ.integrate(Reader(), range(nf), acc)
+        accs.append(acc)
+    assert accs[0].fg_count.sum() > 0
+    for name in ("fg_sum", "fg_count", "sum_ix", "sum_iy", "sum_iz", "bg_hist", "bg_overflow",
+                 "bg_count"):
+        np.testing.assert_array_equal(getattr(accs[0], name), getattr(accs[1], name), err_msg=name)
