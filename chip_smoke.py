@@ -36,7 +36,19 @@ import).  Phases, each of which fails the run:
    rise;
 8. gathers — each gather kernel against its plain version at the main
    path's shapes, bit for bit, with windows at the contract's edges, and its
-   time beside the plain version's and one advanced-indexing call's.
+   time beside the plain version's and one advanced-indexing call's;
+9. decode — the bitshuffle-to-frame kernel against its plain version at
+   Eiger 16M, bit for bit and against the frames that went in: the planes
+   of the six sample frames, a seeded Poisson frame with spots and a u32
+   frame with 0xFFFFFFFF sentinels, all through the port's codec; its time
+   beside its byte bound and the plain version's;
+10. batched main path — the six sample frames as a /dev/shm-style stream
+   dump, through the ``spotfinder`` CLI with ``--precision f32 --batch 4``,
+   host and device decode, both algorithms: the anchors, no fallback
+   notice, and the decode, dispersion and extended kernels launched once
+   per batch; the golden through ``collect_batch`` from frames and from
+   planes; the processor's steady batched frames/s and per-batch upload
+   time beside the per-frame path's.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -46,6 +58,7 @@ any failure.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -53,6 +66,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -104,6 +118,7 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.lru_cache(maxsize=None)
 def seeded_frames():
     """(name, frame, mask) test inputs at Eiger 16M besides the samples."""
     from ffs_tpu_torch.io import sample_data
@@ -575,7 +590,9 @@ def phase_integrator(dev):
     if not (share > 0.9 and ratio > 0.7):
         fail(f"integrated intensities off: valid share {share:.4f}, median ratio {ratio:.4f}")
 
-    profile_integrate(integ, reader, image_numbers[:12])
+    acc = kabsch.Accumulators.zeros(len(integ.s1))
+    profile_device("integrator profile over 12 images",
+                   lambda: integ.integrate(reader, image_numbers[:12], acc))
 
     z_lo = np.clip(integ.bboxes[:, 4], 0, N_IMAGES)
     z_hi = np.clip(integ.bboxes[:, 5], 0, N_IMAGES)
@@ -584,20 +601,17 @@ def phase_integrator(dev):
     return col, out, stage_t, launches
 
 
-def profile_integrate(integ, reader, image_numbers) -> None:
-    """Where integrate()'s time goes: torch.profiler over a run on the first
-    images (outside the main path's counted run): the device's busy share
-    of the wall time and the device time by kernel and copy."""
+def profile_device(label: str, fn) -> None:
+    """Where ``fn``'s time goes: torch.profiler over one call (outside any
+    main path's counted run): the device's busy share of the wall time and
+    the device time by kernel and copy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ffs_tpu_torch.integration import kabsch
-
-    acc = kabsch.Accumulators.zeros(len(integ.s1))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        integ.integrate(reader, image_numbers, acc)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels and copies; the host ops that
@@ -608,12 +622,10 @@ def profile_integrate(integ, reader, image_numbers) -> None:
             and not e.key.startswith("Activity Buffer")]
     busy_ms = sum(r[0] for r in rows)
     if not rows:
-        say("integrator profile: the profiler saw no device time (not measured)")
+        say(f"{label}: the profiler saw no device time (not measured)")
         return
-    say(f"integrator profile over {len(image_numbers)} images ({integ.chunk_setups} chunk "
-        f"set-ups and {integ.block_steps} block steps so far): wall {wall_ms:.1f} ms, device "
-        f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
-        f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    say(f"{label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         say(f"    {ms:9.2f} ms {count:6d}x  {key[:90]}")
 
@@ -703,6 +715,290 @@ def phase_gathers(dev, integ, frames_host):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def sample_frames() -> np.ndarray:
+    """The six sample frames, (6, H, W) u16."""
+    from ffs_tpu_torch.io import sample_data
+
+    return np.stack([sample_data.generate_sample_image(i) for i in range(6)])
+
+
+def to_planes(frames: np.ndarray) -> tuple[list[bytes], np.ndarray]:
+    """Each frame through the port's codec: its bitshuffle-LZ4 chunk, and
+    the stacked LZ4-decoded block planes (B, n_blocks, block_bytes) u8 that
+    device decode uploads (the final partial block re-spread, zero padded)."""
+    from ffs_tpu_torch.io import compression
+
+    s = frames.dtype.itemsize
+    chunks = [compression.bshuf_lz4_compress(f, s) for f in frames]
+    planes = [compression.bshuf_lz4_planes(c, frames[0].size, s)[0] for c in chunks]
+    return chunks, np.stack(planes)
+
+
+def bit_err(got, want) -> int:
+    """Largest |difference| of two unsigned pixel tensors, read through
+    same-width signed views (PyTorch's uint16/uint32 lack CUDA ops)."""
+    import torch
+
+    sgn = torch.int16 if got.element_size() == 2 else torch.int32
+    bits = 8 * got.element_size()
+    a = got.view(sgn).to(torch.int64) & ((1 << bits) - 1)
+    b = want.view(sgn).to(torch.int64) & ((1 << bits) - 1)
+    return int((a - b).abs().max())
+
+
+def phase_decode(dev, sample_planes: np.ndarray):
+    """The decode kernel against its plain version, and both against the
+    frames that went into the codec; returns the summary's figures, timed
+    at the batched main path's shape (four u16 frames a launch)."""
+    import torch
+
+    from ffs_tpu_torch.ops import bitshuffle_device as bd
+
+    (_, poisson, _), (_, u32, _) = seeded_frames()
+    inputs = [("sample frames", sample_frames(), sample_planes)]
+    inputs += [(tag, f[None], to_planes(f[None])[1]) for tag, f in
+               (("poisson_u16", poisson), ("sentinel_u32", u32))]
+    max_err = 0
+    for tag, frames, planes in inputs:
+        h, w = frames.shape[1:]
+        tdt = torch.uint16 if frames.dtype == np.uint16 else torch.uint32
+        p = torch.from_numpy(planes).to(dev)
+        want = bd.frames_from_planes_plain(p, h, w, tdt)
+        got = bd.frames_from_planes(p, h, w, tdt)
+        torch.cuda.synchronize()
+        err = bit_err(got, want)
+        max_err = max(max_err, err)
+        back = bit_err(got, torch.from_numpy(frames.view(np.int16 if tdt == torch.uint16
+                                                          else np.int32)).to(dev).view(tdt))
+        say(f"decode {tag:13s} planes {tuple(planes.shape)} -> {tuple(got.shape)} {tdt}: "
+            f"bit-equal to plain {err == 0}, to the frames {back == 0}")
+        if err or back or got.dtype != tdt or tuple(got.shape) != frames.shape:
+            fail(f"decode of {tag}: |diff| {err} to the plain version, {back} to the frames")
+
+    times = {}
+    for tag, planes, tdt in (("u16 x4", sample_planes[:4], torch.uint16),
+                             ("u32 x1", inputs[2][2], torch.uint32)):
+        h, w = SIDE
+        p = torch.from_numpy(planes).to(dev)
+        kernel = lambda: bd.frames_from_planes(p, h, w, tdt)  # noqa: E731
+        plain = lambda: bd.frames_from_planes_plain(p, h, w, tdt)  # noqa: E731
+        nbytes = p.numel() + kernel().numel() * (2 if tdt == torch.uint16 else 4)
+        bound = bound_ms(nbytes)
+        p1 = cuda_ms(plain, 3)
+        k1 = cuda_ms(kernel, 50)
+        k2 = cuda_ms(kernel, 50)
+        p2 = cuda_ms(plain, 3)
+        n = planes.shape[0]
+        say(f"time decode {tag}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms a "
+            f"launch of {n} Eiger 16M frames; bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} B); "
+            f"{nbytes / ((k1 + k2) / 2) / 1e9:.3f} TB/s, {(k1 + k2) / 2 / n:.4f} ms a frame")
+        times[tag] = {"max_abs_err": max_err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                      "bound": bound, "library_ms": None}
+    return {"bitshuffle_frames": times["u16 x4"]}
+
+
+def write_shm_dir(root: pathlib.Path, chunks: list[bytes], mask: np.ndarray) -> pathlib.Path:
+    """A /dev/shm-style stream dump (io/shm.py's layout) of compressed u16
+    Eiger 16M frames: a still collection, the sample mask as start_5."""
+    h, w = SIDE
+    header = {
+        "nimages": len(chunks), "ntrigger": 1, "y_pixels_in_detector": h,
+        "x_pixels_in_detector": w, "bit_depth_image": 16,
+        "countrate_correction_count_cutoff": 65535, "wavelength": 0.976,
+        "detector_distance": 500.0, "y_pixel_size": 7.5e-05, "x_pixel_size": 7.5e-05,
+        "beam_center_y": h / 2, "beam_center_x": w / 2,
+    }
+    (root / "start_1").write_text(json.dumps(header))
+    (root / "start_4").write_text("{}")
+    (root / "start_5").write_bytes((mask == 0).astype(np.int32).tobytes())
+    for i, chunk in enumerate(chunks):
+        (root / f"image_{i:06d}_2").write_bytes(chunk)
+    return root
+
+
+def phase_batch_main_path(chunks: list[bytes]):
+    """The CLI's batched path (--batch 4, host and device decode, both
+    algorithms) over a stream dump of the six sample frames; returns
+    {kernel: launches during these runs}."""
+    import torch
+
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.ops.bitshuffle_device import frames_from_planes
+    from ffs_tpu_torch.ops.dispersion_extended_packed import dispersion_extended_packed_raw
+    from ffs_tpu_torch.ops.dispersion_packed import dispersion_packed_raw
+
+    anchors = {
+        "dispersion": {2: (9506, 9506), 5: (2388, 2311)},
+        "dispersion_extended": {5: (3, None)},
+    }
+    batch = 4
+    n_batches = -(-len(chunks) // batch)  # the tail batch zero padded
+    with tempfile.TemporaryDirectory(prefix="ffs_smoke_shm_") as tmp:
+        d = write_shm_dir(pathlib.Path(tmp), chunks, sample_data.generate_mask())
+        frames_from_planes.launches = 0
+        dispersion_packed_raw.launches = 0
+        dispersion_extended_packed_raw.launches = 0
+        for decode in ("host", "device"):
+            for algo, want in anchors.items():
+                run = f"f32 --batch {batch} {decode} decode {algo}"
+                rc, log, lines, seconds = run_cli([
+                    str(d), "--precision", "f32", "--batch", str(batch), "--min-spot-size", "1",
+                    "--algorithm", algo, "--decode-backend", decode])
+                if rc != 0:
+                    print(log)
+                    fail(f"CLI {run} exited {rc}")
+                if "Device: cuda" not in log or "unavailable" in log:
+                    print(log)
+                    fail(f"CLI {run} did not run the batched path on the CUDA device")
+                by_frame = {ln["file-number"]: ln for ln in lines}
+                if sorted(by_frame) != list(range(len(chunks))):
+                    fail(f"CLI {run}: pipe lines for frames {sorted(by_frame)}")
+                for img, (px, spots) in want.items():
+                    got = by_frame[img]
+                    if got["num_strong_pixels"] != px or (
+                        spots is not None and got["n_spots_total"] != spots
+                    ):
+                        fail(f"CLI {run} image {img}: {got} != ({px}, {spots})")
+                m = re.search(r"(\d+) images in ([\d.]+) s .*\(([\d.]+) fps\)", log)
+                say(f"cli {run:44s} anchors ok; "
+                    + " ".join(f"{k}:{v['num_strong_pixels']}/{v['n_spots_total']}"
+                               for k, v in sorted(by_frame.items()))
+                    + f"; CLI fps {m.group(3)}, run() {seconds:.2f} s")
+        torch.cuda.synchronize()
+        launches = {
+            "bitshuffle_frames": frames_from_planes.launches,
+            "dispersion_packed": dispersion_packed_raw.launches,
+            "dispersion_extended_packed": dispersion_extended_packed_raw.launches,
+        }
+    # a launch per batch: decode in the device-decode runs only, each
+    # threshold kernel in its algorithm's host and device-decode runs
+    want = {"bitshuffle_frames": len(anchors) * n_batches,
+            "dispersion_packed": 2 * n_batches, "dispersion_extended_packed": 2 * n_batches}
+    say(f"batched main-path kernel launches: {launches}")
+    if launches != want:
+        fail(f"batched main-path launches {launches}, expected {want}")
+    return launches
+
+
+def phase_batch_golden(dev, sample_planes: np.ndarray):
+    """Images 2 and 5 through collect_batch, from frames and from planes,
+    against the golden; the device-CC batch equal to the host-CC one."""
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.ops.cc2d_host import cc2d
+    from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
+
+    golden = np.load(ROOT / "tests" / "data" / "bench_anchor_golden.npz")
+    h, w = SIDE
+    mask = sample_data.generate_mask()
+    nums = [2, 3, 4, 5]
+    frames, planes = sample_frames()[nums], sample_planes[nums]
+    results = {}
+    for cc_backend in ("auto", "device"):
+        proc = SpotfindProcessor(
+            w, h, mask, 65535.0,
+            SpotfindConfig(precision="f32", min_spot_size=1, cc_backend=cc_backend), device=dev,
+        )
+        if not proc.batch_supported():
+            fail("the f32 processor does not support batched collection on the card")
+        for form, dispatch, data in (("frames", proc.dispatch_batch, frames),
+                                     ("planes", proc.dispatch_batch_planes, planes)):
+            res = proc.collect_batch(nums, dispatch(data), want_com=True)
+            results[(cc_backend, form)] = res
+            for tag, idx in (("img2", 2), ("img5", 5)):
+                r = res[nums.index(idx)]
+                lin = r.pixels.linear_index.astype(np.int64)
+                errs = check_golden(golden, tag, w, lin, r.pixels.intensity,
+                                    cc2d(lin, r.pixels.intensity, w))
+                if errs:
+                    fail(f"batch {cc_backend} CC from {form}: " + "; ".join(errs))
+    ref = results[("auto", "frames")]
+    for key, res in results.items():
+        for a, b in zip(ref, res):
+            same = (a.n_strong_pixels, a.n_spots, a.n_spots_prefilter,
+                    a.n_strong_pixels_filtered) == (b.n_strong_pixels, b.n_spots,
+                                                    b.n_spots_prefilter, b.n_strong_pixels_filtered)
+            if not (same and np.array_equal(a.pixels.linear_index, b.pixels.linear_index)
+                    and np.array_equal(a.pixels.root, b.pixels.root)):
+                fail(f"batch {key} differs from the host-CC frame batch on image {a.image_number}")
+    say("golden through collect_batch: img2 and img5 from frames and from planes, every "
+        "column equal (incl. peak_intensity); device-CC batches equal the host-CC ones")
+
+
+def phase_batch_times(dev, sample_planes: np.ndarray) -> None:
+    """The processor's steady frames/s on the six sample frames held in host
+    memory (f32 dispersion, host CC): batched from frames at B = 4 and 8,
+    batched from planes at B = 4, and the per-frame tiered path, each with
+    its upload's host-clock time (the fastest copy of a batch or frame).
+    Five rounds, the order reversed every other round; then a device
+    profile of one batched run from frames and one from planes."""
+    import torch
+
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
+
+    h, w = SIDE
+    proc = SpotfindProcessor(w, h, sample_data.generate_mask(), 65535.0,
+                             SpotfindConfig(precision="f32", min_spot_size=1), device=dev)
+    frames = sample_frames()
+    passes = 3  # over the batches of a case in one timed run
+
+    def clocked(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def batched(b, source, dispatch):
+        # three batches that together hold every sample frame B/2 times
+        stacks = [source[(np.arange(b) + k * b) % len(frames)] for k in range(3)]
+        nums = list(range(b))
+
+        def run():
+            prev = None  # one batch in flight, as the CLI keeps it
+            for _ in range(passes):
+                for s in stacks:
+                    cur = dispatch(s)
+                    if prev is not None:
+                        proc.collect_batch(nums, prev)
+                    prev = cur
+            proc.collect_batch(nums, prev)
+
+        proc.collect_batch(nums, dispatch(stacks[0]))  # warm
+        return passes * len(stacks) * b, run, stacks
+
+    def per_frame():
+        for _ in range(passes):
+            for i, f in enumerate(frames):
+                proc.process_frame(i, f)
+
+    proc.process_frame(2, frames[2])  # warm
+    cases = {
+        "batch frames B=4": batched(4, frames, proc.dispatch_batch),
+        "batch frames B=8": batched(8, frames, proc.dispatch_batch),
+        "batch planes B=4": batched(4, sample_planes, proc.dispatch_batch_planes),
+        "per-frame tiered": (passes * len(frames), per_frame, list(frames)),
+    }
+    fps = {name: [] for name in cases}
+    upload = {name: [] for name in cases}
+    for r in range(5):
+        for name in (list(cases) if r % 2 == 0 else list(reversed(cases))):
+            n, run, stacks = cases[name]
+            fps[name].append(n / clocked(run))
+            upload[name].append(1e3 * min(clocked(lambda s=s: proc._upload(s)) for s in stacks))
+    for name, (n, run, stacks) in cases.items():
+        rate = float(np.median(fps[name]))
+        up = float(np.median(upload[name]))
+        per = n // passes // len(stacks)  # frames a copy
+        say(f"processor f32 dispersion {name}: median {rate:.1f} frames/s (runs "
+            + ", ".join(f"{x:.1f}" for x in fps[name]) + f"); upload median {up:.2f} ms "
+            f"({stacks[0].nbytes} B), {100 * up * rate / per / 1e3:.1f}% of the wall")
+    for name in ("batch frames B=4", "batch planes B=4"):
+        n, run, _ = cases[name]
+        profile_device(f"profile of {name} ({n} frames)", run)
+
+
 def main() -> int:
     # the smoke proves the port runs on its own: any import of JAX, of the
     # JAX package or of its benchmark fails
@@ -766,6 +1062,17 @@ def main() -> int:
     gathers = phase_gathers(dev, integ_run.integrator, col.frames)
     say(f"gather times above on {card}")
 
+    # phase 9: the decode kernel against its plain version, with times
+    chunks, sample_planes = to_planes(sample_frames())
+    decode = phase_decode(dev, sample_planes)
+    say(f"decode times above on {card}")
+
+    # phase 10: the batched main path, its golden and its rates
+    launches["bitshuffle_frames"] = phase_batch_main_path(chunks)["bitshuffle_frames"]
+    phase_batch_golden(dev, sample_planes)
+    phase_batch_times(dev, sample_planes)
+    say(f"processor rates above on {card}")
+
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
@@ -775,6 +1082,8 @@ def main() -> int:
                                  "ffs_tpu/ops/window_gather.py:39"),
         "window_gather": ("ffs_tpu_torch/csrc/window_gather.cu",
                           "ffs_tpu/ops/window_gather.py:460"),
+        "bitshuffle_frames": ("ffs_tpu_torch/csrc/bitshuffle_frames.cu",
+                              "ffs_tpu/ops/frame_assemble.py:55"),
     }
     figures = {
         name: {"max_abs_err": max_err[name], "ms": t[0], "plain_ms": t[1],
@@ -782,6 +1091,7 @@ def main() -> int:
         for name, t in times.items()
     }
     figures.update(gathers)
+    figures.update(decode)
     summary = {"kernels": [
         {
             "name": name,

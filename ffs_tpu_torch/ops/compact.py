@@ -1,11 +1,11 @@
 """Stream compaction from the packed [pc | w32] rows, in plain PyTorch.
 
-Counterpart of :func:`ffs_tpu.ops.compact.compact_from_pcw`.  The port owes
-the same :class:`~ffs_tpu_torch.ops.connected_components.CompactPixels`
-values — strong pixels in raster order, ``BIG`` padding, the exact count —
-not the TPU's gather formulation: here the set bits are expanded from the
-nonzero words only (a few thousand per frame), so no dense plane is
-rebuilt.
+Counterpart of :func:`ffs_tpu.ops.compact.compact_from_pcw` and
+:func:`ffs_tpu.ops.compact.compact_from_pcw_segmented`.  The port owes the
+same :class:`~ffs_tpu_torch.ops.connected_components.CompactPixels` values
+— strong pixels in raster order, ``BIG`` padding, the exact count — not the
+TPU's gather formulation: here the set bits are expanded from the nonzero
+words only (a few thousand per frame), so no dense plane is rebuilt.
 """
 
 from __future__ import annotations
@@ -15,17 +15,35 @@ import torch
 from .connected_components import BIG, CompactPixels, gather_i32, neighbour_slots
 
 
+def _set_bits(words: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Every set bit of ``words`` (..., nwl) int32, in raster order: the
+    index tuple of its word (leading dims and word lane) and the column
+    32j+t of bit t of word j, all int64."""
+    idx = torch.nonzero(words, as_tuple=True)  # raster word order
+    w = words[idx].to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = torch.bitwise_right_shift(w[:, None], shifts[None, :]) & 1
+    k, t = torch.nonzero(bits, as_tuple=True)  # (word, bit) raster order
+    return (*(i[k] for i in idx[:-1]), idx[-1][k] * 32 + t)
+
+
 def _strong_linear_indices(pcw: torch.Tensor, width: int) -> torch.Tensor:
     """Raster-ordered int64 linear indices of every set bit in (H, 2*nwl)
     combined rows (bit t of word j = column 32j+t)."""
-    nwl = pcw.shape[-1] // 2
-    words = pcw[:, nwl:]
-    rows, cols = torch.nonzero(words, as_tuple=True)  # raster word order
-    w = words[rows, cols].to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.arange(32, dtype=torch.int64, device=pcw.device)
-    bits = torch.bitwise_right_shift(w[:, None], shifts[None, :]) & 1
-    k, t = torch.nonzero(bits, as_tuple=True)  # (word, bit) raster order
-    return rows[k] * width + cols[k] * 32 + t
+    rows, cols = _set_bits(pcw[:, pcw.shape[-1] // 2 :])
+    return rows * width + cols
+
+
+def _check_i32_sort_keys(b: int, ht: int, w: int) -> None:
+    """The guard of ``ffs_tpu.ops.compact._check_i32_sort_keys``: the tall
+    linear indices, times the JAX CC's four sort-key tags, must fit int32.
+    It also keeps every tall index below the ``BIG`` padding sentinel."""
+    if b * ht * w * 4 >= 2**31:
+        raise ValueError(
+            f"flat batch too tall for i32 CC sort keys: B*{ht}*{w}*4 = "
+            f"{b * ht * w * 4} >= 2^31; split the batch (max "
+            f"{(2**31 // (4 * ht * w))} frames at this geometry)"
+        )
 
 
 def compact_from_pcw(
@@ -57,3 +75,66 @@ def compact_from_pcw(
         return pixels
     nbu, nbd = neighbour_slots(lin, w)
     return pixels, nbu, nbd
+
+
+def compact_from_pcw_segmented(
+    images: torch.Tensor,
+    pcw: torch.Tensor,
+    *,
+    max_pixels_per_frame: int = 4096,
+    with_neighbors: bool = False,
+):
+    """Batch compaction with per-frame slot segments.
+
+    ``images`` (B, H, W), ``pcw`` (B, h, 2*nwl) combined rows.  Frame b's
+    strong pixels occupy slots [b*Kf, (b+1)*Kf) (Kf =
+    ``max_pixels_per_frame``) in raster order, then ``BIG`` padding, so
+    padding interleaves with pixels across the B*Kf slots.  Linear indices
+    are tall, ``(b*(h+1) + y)*W + x``: one empty gap row per frame keeps
+    4-connected components from bridging frames.
+
+    Returns ``(pixels, counts)`` or ``(pixels, nbu, nbd, counts)``;
+    ``counts`` (B,) int32 holds each frame's exact total (a frame overflows
+    when ``counts[b] > Kf``) and ``pixels.count`` the batch total.  The
+    neighbour slots are ``b*Kf`` plus the frame-local index of the
+    neighbour, or the own slot where there is none; as in the JAX form, a
+    down neighbour inside an overflowing frame may point past its segment
+    (such frames are discarded by the caller).
+    """
+    b, h, nwl2 = pcw.shape
+    nwl = nwl2 // 2
+    h_img, w = images.shape[-2], images.shape[-1]
+    ht = h + 1
+    _check_i32_sort_keys(b, ht, w)
+    kf = max_pixels_per_frame
+    dev = pcw.device
+
+    counts = pcw[:, :, nwl - 1].sum(dim=1, dtype=torch.int32)
+    fb, y, x = _set_bits(pcw[:, :, nwl:])
+    lin_all = (fb * ht + y) * w + x  # tall, ascending
+    start = torch.cumsum(counts, 0, dtype=torch.int64) - counts  # first pixel of each frame
+    local = torch.arange(lin_all.shape[0], dtype=torch.int64, device=dev) - start[fb]
+    keep = local < kf
+    slot = (fb * kf + local)[keep]
+
+    lin = torch.full((b * kf,), BIG, dtype=torch.int32, device=dev)
+    lin[slot] = lin_all[keep].to(torch.int32)
+    inten = torch.zeros(b * kf, dtype=torch.int32, device=dev)
+    inten[slot] = gather_i32(images, ((fb * h_img + y) * w + x)[keep])
+    pixels = CompactPixels(lin, inten, counts.sum(dtype=torch.int32))
+    if not with_neighbors:
+        return pixels, counts
+
+    # a vertical neighbour lies in the same frame (the gap rows hold no
+    # pixels), so its frame-local index is its position minus the frame's
+    # first one
+    nbu = torch.arange(b * kf, dtype=torch.int64, device=dev)
+    nbd = nbu.clone()
+    n = lin_all.shape[0]
+    if n:
+        lin_k, fb_k = lin_all[keep], fb[keep]
+        for nb, target in ((nbu, lin_k - w), (nbd, lin_k + w)):
+            pos = torch.searchsorted(lin_all, target).clamp(max=n - 1)
+            hit = lin_all[pos] == target
+            nb[slot[hit]] = (fb_k * kf + pos - start[fb_k])[hit]
+    return pixels, nbu.to(torch.int32), nbd.to(torch.int32), counts

@@ -1,9 +1,10 @@
 """Connected components and spot statistics over compacted strong pixels,
 in plain PyTorch.
 
-Counterpart of :mod:`ffs_tpu.ops.connected_components` (the per-frame
-forms).  The f64 default path runs its 2D connected components on the
-device through these functions; the f32 kernel path labels on the host
+Counterpart of :mod:`ffs_tpu.ops.connected_components` (the per-frame and
+flat-batch forms).  The f64 default path runs its 2D connected components
+on the device through these functions, and so does the batched path with
+``cc_backend="device"``; the f32 kernel path labels on the host by default
 (ffs_tpu.ops.cc2d_host).  Labels are deterministic whatever the algorithm:
 a pixel's root is the smallest slot of its 4-connected component, i.e.
 the component's minimum linear index, so spot ids come out in raster order
@@ -150,8 +151,17 @@ def spot_table_from_pixels(
     width: int,
     max_spots: int = DEFAULT_MAX_SPOTS,
     dtype: torch.dtype = torch.float32,
+    frame_rows: int | None = None,
 ) -> SpotTable:
-    """Per-spot statistics of one frame from compacted, labelled pixels.
+    """Per-spot statistics from compacted, labelled pixels.
+
+    Single-frame form (``frame_rows=None``): z = 0 for every pixel.
+    Flat-batch form (``frame_rows=h``): the linear indices are tall,
+    ``(b*(h+1) + y)*W + x`` (``ops.compact.compact_from_pcw_segmented``), so
+    y comes back modulo the (h+1)-row pitch and the frame b becomes z; one
+    call tabulates a whole batch, and the raster tie-break order is the
+    reference's (z, y, x) order.  The JAX package's ``peak_key_slots`` fold
+    is a TPU fast path with the same result; the port does not need it.
 
     Spot ids follow the raster order of the roots; spots past ``max_spots``
     fall into a dropped overflow segment (callers check ``n_spots``).  The
@@ -174,7 +184,13 @@ def spot_table_from_pixels(
 
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     px_x = torch.where(in_spot, lin % width, zero)
-    px_y = torch.where(in_spot, torch.div(lin, width, rounding_mode="floor"), zero)
+    row_t = torch.div(lin, width, rounding_mode="floor")
+    if frame_rows is not None:
+        px_z = torch.where(in_spot, torch.div(row_t, frame_rows + 1, rounding_mode="floor"), zero)
+        px_y = torch.where(in_spot, row_t - px_z * (frame_rows + 1), zero)
+    else:
+        px_y = torch.where(in_spot, row_t, zero)
+        px_z = torch.zeros_like(px_x)
     sid = torch.where(in_spot, torch.clamp(spot_id, max=max_spots), max_spots).to(torch.int64)
 
     inten = pixels.intensity.to(dtype)
@@ -188,8 +204,8 @@ def spot_table_from_pixels(
     n_pixels = fsum[:, 0].to(torch.int32)
     sum_i, sum_ix, sum_iy = fsum[:, 1], fsum[:, 2], fsum[:, 3]
 
-    # mins ride one max reduction as negated columns (exact for integers)
-    px_z = torch.zeros_like(px_x)
+    # mins ride one max reduction as negated columns (exact for integers);
+    # z is constant within a spot (frames never bridge), so z_max == z_min
     pad6 = torch.tensor([-1, -1, -1, -BIG, -BIG, -BIG], dtype=torch.int32, device=dev)
     vals = torch.where(
         in_spot[:, None],
@@ -213,10 +229,17 @@ def spot_table_from_pixels(
         0, sid, torch.where(is_peak, lin, BIG), "amin"
     )[:max_spots]
     peak_x = peak_lin % width
-    peak_y = torch.where(
+    peak_row_t = torch.where(
         peak_lin < BIG, torch.div(peak_lin, width, rounding_mode="floor"), BIG
     )
-    peak_z = torch.zeros_like(peak_x)
+    if frame_rows is not None:
+        peak_z = torch.where(
+            peak_lin < BIG, torch.div(peak_row_t, frame_rows + 1, rounding_mode="floor"), 0
+        )
+        peak_y = torch.where(peak_lin < BIG, peak_row_t - peak_z * (frame_rows + 1), BIG)
+    else:
+        peak_y = peak_row_t
+        peak_z = torch.zeros_like(peak_x)
 
     one = torch.ones((), dtype=dtype, device=dev)
     safe_sum = torch.where(sum_i > 0, sum_i, one)

@@ -4,11 +4,18 @@ Counterpart of :mod:`ffs_tpu.pipeline.spotfinder` with the same argument
 surface, JSON-over-pipe protocol, scraped log lines (``Thread .. finished
 image .. with .. strong pixels``, ``Calculated N spots``, ``Filtered N spots
 with size < K pixels``), exit-code-32 bit-depth renegotiation, ``--validate``,
-``--profile``, streaming 3D merge and ``results_ffs.h5``.  The reader,
-algorithm-name and validation helpers are copies of the JAX CLI's (they
-touch no framework).  Not ported yet: ``--batch`` and ``--decode-backend device``
-(both print the JAX CLI's fallback notice and run per frame) and
-``--jax-profile``.
+``--profile``, streaming 3D merge and ``results_ffs.h5``; ``--batch B``
+runs frames through the batched path and ``--decode-backend device`` ships
+the LZ4-decoded bitshuffle planes to the card, which decodes them there
+(both need the kernel path: ``--precision f32`` on a CUDA device);
+``--jax-profile DIR`` writes a ``torch.profiler`` trace of the collection
+loop.  The reader, algorithm-name and validation helpers are copies of the
+JAX CLI's (they touch no framework).
+
+Test hook: ``FFS_TORCH_KERNEL_PATH=1`` turns the kernel path on for a CPU
+device, where the kernels' plain PyTorch versions run, so that the batched
+path and device decode run in the CPU tests (the JAX CLI's
+``FFS_PALLAS_INTERPRET``).  It changes nothing on a CUDA device.
 
 Console scripts: ``spotfinder_torch`` and ``spotfinder32_torch``; the
 service runs them through its SPOTFINDER / SPOTFINDER_32BIT variables.
@@ -176,7 +183,11 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         type=int,
         default=1,
         metavar="B",
-        help="Batched collection (not ported yet: frames run one at a time)",
+        help="Process frames in device batches of B through the batched path"
+        " (one kernel launch per batch, segmented per-frame compaction) to"
+        " amortise per-frame overhead.  Requires the kernel path (--precision"
+        " f32 on a GPU); falls back to per-frame otherwise.  Incompatible with"
+        " --profile (which times stages per frame).",
     )
     p.add_argument(
         "--compact-backend",
@@ -191,8 +202,11 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         "--decode-backend",
         choices=["host", "device"],
         default=_env_choice("FFS_SPOTFIND_DECODE", "host", ("host", "device")),
-        help="Where the bitshuffle untranspose runs ('device' is not ported"
-        " yet: frames decode on the host).  Env default: FFS_SPOTFIND_DECODE.",
+        help="Where the bitshuffle untranspose runs.  'device' has the reader"
+        " threads stop at the LZ4 stage and uploads the bit-plane buffers,"
+        " which a CUDA kernel turns into frames inside the batch.  Requires"
+        " --batch on the kernel path and a bitshuffle-LZ4 source; falls back"
+        " to host decode otherwise.  Env default: FFS_SPOTFIND_DECODE.",
     )
     p.add_argument(
         "--profile",
@@ -200,6 +214,15 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         help="Per-image stage timing breakdown (upload/kernel/compact/post),"
         " mirroring the reference's CUDA-event per-image report; disables"
         " the dispatch-ahead pipeline so stages time individually",
+    )
+    p.add_argument(
+        "--jax-profile",
+        metavar="DIR",
+        default=None,
+        help="Write a torch.profiler trace (Chrome trace JSON, CPU and CUDA"
+        " activity) of the collection loop into DIR; the flag keeps the JAX"
+        " CLI's name.  Composable with --batch; unlike --profile it keeps the"
+        " dispatch-ahead pipeline intact.",
     )
     return p
 
@@ -348,6 +371,10 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
         precision=args.precision,
         compact_backend=args.compact_backend,
     )
+    if os.environ.get("FFS_TORCH_KERNEL_PATH") and device.type == "cpu":
+        # test hook: the kernel path (and with it --batch and device decode)
+        # on the CPU, through the kernels' plain versions
+        config.use_kernel = True
     mask = reader.get_mask()
     if mask is None:
         mask = np.ones((height, width), dtype=np.uint8)
@@ -395,6 +422,8 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
         timings = None
         if isinstance(result, tuple) and len(result) == 3 and result[0] == "profiled":
             _, res, timings = result
+        elif isinstance(result, tuple) and len(result) == 2 and result[0] == "collected":
+            res = result[1]  # batched mode: already a FrameResult
         else:
             res = processor.collect(image_num, result, want_com=want_com)
         n_strong = res.n_strong_pixels
@@ -474,28 +503,110 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
 
         executor = ThreadPoolExecutor(max_workers=args.threads)
 
-    if args.batch > 1:
+    # batched collection (--batch B): frames buffer into batches of B and
+    # run through the batched path
+    batch_n = max(1, args.batch)
+    use_batch = batch_n > 1 and not args.profile and processor.batch_supported()
+    if batch_n > 1 and not use_batch:
         print(
             "Batched mode unavailable "
-            "(requires the Pallas packed path: TPU + f32); "
+            "(requires the kernel path: CUDA + f32); "
             "falling back to per-frame processing"
         )
-    if args.decode_backend == "device":
+    # device-side bitshuffle decode (--decode-backend device): the reader
+    # threads stop at the LZ4 stage; the planes upload and become frames on
+    # the card inside the batch (ops/bitshuffle_device.py)
+    decode_device = (
+        args.decode_backend == "device" and use_batch and hasattr(reader, "get_image_planes")
+    )
+    if args.decode_backend == "device" and not decode_device:
         print(
-            "Device decode unavailable (requires --batch on the Pallas "
-            "packed path and a bitshuffle-LZ4 reader); "
+            "Device decode unavailable (requires --batch on the kernel "
+            "path and a bitshuffle-LZ4 reader); "
             "falling back to host decode"
         )
+    pixel_dtype = np.uint16 if bytes_per_pixel == 2 else np.uint32
+
+    def _fetch(num):
+        """Reader-thread payload: LZ4-only planes when device decode is on
+        and the frame supports it, the decoded frame otherwise."""
+        if decode_device:
+            planes = reader.get_image_planes(num)
+            if planes is not None:
+                return ("planes", planes)
+        return ("frame", reader.get_image(num))
+
+    class _LazyFrames:
+        """Host frames decoded on demand (the batched overflow fallback and
+        --validate/--writeout are the only consumers in planes mode)."""
+
+        def __init__(self, nums):
+            self._nums = nums
+            self._cache: dict = {}
+
+        def __getitem__(self, b):
+            if b not in self._cache:
+                self._cache[b] = reader.get_image(self._nums[b])
+            return self._cache[b]
+
+    batch_buf: list = []  # [(image_num, (tag, payload))]
+    need_host_frames = bool(args.validate or args.writeout)
 
     def _emit_next():
-        _emit(*inflight.popleft())
+        item = inflight.popleft()
+        if item[0] == "batch":
+            _, nums, dev, imgs = item
+            ress = processor.collect_batch(nums, dev, images=imgs, want_com=want_com)
+            lazy = isinstance(imgs, _LazyFrames)
+            for b, (num, res) in enumerate(zip(nums, ress)):
+                img = None if (lazy and not need_host_frames) else imgs[b]
+                _emit(num, ("collected", res), img)
+        else:
+            _emit(*item[1:])
 
-    def _dispatch_image(num, image):
+    def _flush_batch():
+        if not batch_buf:
+            return
+        nums = [n for n, _ in batch_buf]
+        payloads = [p for _, p in batch_buf]
+        if all(tag == "planes" for tag, _ in payloads):
+            pls = [a for _, a in payloads]
+            stack = np.stack(pls + [np.zeros_like(pls[0])] * (batch_n - len(pls)))
+            dev = processor.dispatch_batch_planes(stack, dtype=pixel_dtype)
+            imgs = _LazyFrames(nums)
+        else:
+            # mixed batch (a frame fell back mid-stream): decode any planes
+            # on the host and take the frame path
+            from ..ops.bitshuffle_device import planes_to_frame_host
+
+            frames = [
+                a
+                if tag == "frame"
+                else planes_to_frame_host(a, height * width, bytes_per_pixel)
+                .view(pixel_dtype)
+                .reshape(height, width)
+                for tag, a in payloads
+            ]
+            stack = frames + [np.zeros_like(frames[0])] * (batch_n - len(frames))
+            dev = processor.dispatch_batch(np.stack(stack))
+            imgs = frames
+        inflight.append(("batch", nums, dev, imgs))
+        batch_buf.clear()
+        while len(inflight) >= 2:  # keep one batch in flight
+            _emit_next()
+
+    def _dispatch_image(num, payload):
+        tag, image = payload
+        if use_batch:
+            batch_buf.append((num, (tag, image)))
+            if len(batch_buf) == batch_n:
+                _flush_batch()
+            return
         if args.profile:
             res, timings = processor.process_frame_profiled(num, image, want_com=want_com)
-            inflight.append((num, ("profiled", res, timings), image))
+            inflight.append(("frame", num, ("profiled", res, timings), image))
         else:
-            inflight.append((num, processor.dispatch(image), image))
+            inflight.append(("frame", num, processor.dispatch(image), image))
         if len(inflight) >= depth:
             _emit_next()
 
@@ -504,36 +615,60 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
             num, fut = decode_q.popleft()
             _dispatch_image(num, fut.result())
 
-    last_image_received = time.monotonic()
-    for image_num in range(num_images):
-        if stop_requested:
-            print("Stopping image intake on interrupt")
-            break
-        offset_num = image_num + args.start_index
-        wait_start = time.monotonic()
-        while not reader.is_image_available(offset_num):
-            if stop_requested:
-                break
-            if time.monotonic() - last_image_received > args.timeout:
-                print(f"Timeout waiting for image {offset_num}")
-                break
-            time.sleep(0.1)
-        else:
-            last_image_received = time.monotonic()
-            time_waiting += time.monotonic() - wait_start
-            if executor is not None:
-                decode_q.append((offset_num, executor.submit(reader.get_image, offset_num)))
-                _drain_decoded(block=False)
-            else:
-                _dispatch_image(offset_num, reader.get_image(offset_num))
-            continue
-        break  # timeout
+    prof = None
+    if args.jax_profile:
+        # trace of the whole collection region (intake, dispatch-ahead
+        # pipeline, batch flushes), viewable in Perfetto or chrome://tracing
+        from torch.profiler import ProfilerActivity, profile
 
-    if executor is not None:
-        _drain_decoded(block=True)
-        executor.shutdown(wait=True)
-    while inflight:
-        _emit_next()
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+
+    try:
+        last_image_received = time.monotonic()
+        for image_num in range(num_images):
+            if stop_requested:
+                print("Stopping image intake on interrupt")
+                break
+            offset_num = image_num + args.start_index
+            wait_start = time.monotonic()
+            while not reader.is_image_available(offset_num):
+                if stop_requested:
+                    break
+                if time.monotonic() - last_image_received > args.timeout:
+                    print(f"Timeout waiting for image {offset_num}")
+                    break
+                time.sleep(0.1)
+            else:
+                last_image_received = time.monotonic()
+                time_waiting += time.monotonic() - wait_start
+                if executor is not None:
+                    decode_q.append((offset_num, executor.submit(_fetch, offset_num)))
+                    _drain_decoded(block=False)
+                else:
+                    _dispatch_image(offset_num, _fetch(offset_num))
+                continue
+            break  # timeout
+
+        if executor is not None:
+            _drain_decoded(block=True)
+            executor.shutdown(wait=True)
+        if use_batch:
+            _flush_batch()  # partial tail batch (zero-padded to B)
+        while inflight:
+            _emit_next()
+    finally:
+        # stop even when the collection loop raises: the partial trace is
+        # most wanted in a crash
+        if prof is not None:
+            prof.stop()
+            os.makedirs(args.jax_profile, exist_ok=True)
+            trace = os.path.join(args.jax_profile, "trace.json")
+            prof.export_chrome_trace(trace)
+            print(f"Torch profiler trace written to {trace}")
 
     # ----- epilogues (reference: spotfinder.cc:1099-1305) -------------------
     if rotation:

@@ -16,9 +16,15 @@ per-pixel arrays.  Three forms of the step, chosen by the configuration:
 * **hostcompact** — the device stops at the packed words; the host expands
   the set bits against its own frame copy (ops.compact_host).
 
+Batched collection (:meth:`SpotfindProcessor.dispatch_batch`,
+:meth:`~SpotfindProcessor.dispatch_batch_planes`,
+:meth:`~SpotfindProcessor.collect_batch`) runs B frames through one kernel
+launch, segmented per-frame compaction and, with device CC, one
+multi-frame spot table; the planes form decodes the bitshuffle planes on
+the device first (ops.bitshuffle_device).
+
 The processor carries an explicit ``torch.device``; nothing here reads
-global device state.  Batched collection is not ported yet
-(:meth:`SpotfindProcessor.batch_supported` is False).
+global device state.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from .ops import cc3d
 
 from .ops import connected_components as cc
 from .ops import dispersion as dops
-from .ops.compact import compact_from_pcw
+from .ops.bitshuffle_device import check_planes, frames_from_planes
+from .ops.compact import compact_from_pcw, compact_from_pcw_segmented
 from .ops.dispersion_extended_packed import (
     dispersion_extended_packed_raw,
     mask_box_count_extended,
@@ -64,8 +71,10 @@ class SpotfindConfig:
     dmax: float = -1.0
     max_strong_pixels: int = 65536
     max_spots: int = 16384
-    # per-frame slot capacity of the batched mode (not ported yet; kept so
-    # configurations round-trip with ffs_tpu.spotfind.SpotfindConfig)
+    # batched mode (dispatch_batch/collect_batch): per-frame strong-pixel
+    # slot capacity of the segmented compaction.  None = min(
+    # max_strong_pixels, 16384); frames past it fall back to the per-frame
+    # tiered path (up to max_strong_pixels)
     batch_max_px_per_frame: Optional[int] = None
     precision: str = "f64"  # "f64" (bit-parity with DIALS CPU) or "f32"
     # the packed CUDA kernels; None = auto (CUDA device and f32).  On a CPU
@@ -214,6 +223,7 @@ class SpotfindProcessor:
         self._capacity_tiers = sorted(
             {t for t in (4096, 16384, cfg.max_strong_pixels) if t <= cfg.max_strong_pixels}
         )
+        self._batch_kf = cfg.batch_max_px_per_frame or min(cfg.max_strong_pixels, 16384)
 
     # --- device steps --------------------------------------------------------
 
@@ -281,11 +291,146 @@ class SpotfindProcessor:
             raise _capacity_error(image_number, n, self._capacity_tiers[-1], "maximum capacity")
         return tier
 
-    # --- public per-frame interface ------------------------------------------
+    def _batch_step(self, images: torch.Tensor):
+        """One (B, H, W) batch: the packed kernel for all B frames, segmented
+        compaction and, with device CC, labels, one multi-frame float32 spot
+        table and its filters (``ffs_tpu.spotfind._batch_step``)."""
+        cfg = self.config
+        kf = self._batch_kf
+        pcw = self._packed(images)
+        hp = pcw.shape[1]  # per-frame rows: the tall pitch is hp + 1
+        if self.host_cc:
+            pixels, counts = compact_from_pcw_segmented(images, pcw, max_pixels_per_frame=kf)
+            return pixels, counts, hp
+        pixels, nbu, nbd, counts = compact_from_pcw_segmented(
+            images, pcw, max_pixels_per_frame=kf, with_neighbors=True
+        )
+        # an overflowing frame's neighbour slots may point past the array:
+        # clamp them as the JAX gather does (such frames are discarded)
+        k = pixels.linear_index.shape[0]
+        neighbors = (nbu.clamp(max=k - 1), nbd.clamp(max=k - 1))
+        root_slot = cc.label_compact_pixels(pixels, width=self.width, neighbors=neighbors)
+        root_lin = pixels.linear_index[root_slot.to(torch.int64)]
+        table = cc.spot_table_from_pixels(
+            pixels, root_slot, width=self.width, max_spots=cfg.max_spots,
+            dtype=torch.float32, frame_rows=hp,
+        )
+        size_keep, _, _ = cc.filter_spots(table, cfg.min_spot_size, -1.0, dtype=self._sep_dtype)
+        both_keep, _, _ = cc.filter_spots(
+            table, cfg.min_spot_size, cfg.max_peak_centroid_separation, dtype=self._sep_dtype
+        )
+        return pixels, counts, hp, root_lin, table, size_keep, both_keep
+
+    # --- public batched interface --------------------------------------------
 
     def batch_supported(self) -> bool:
-        """Batched collection is not ported yet."""
-        return False
+        """Batched collection needs the kernel path (the plain dense path has
+        no packed words to segment)."""
+        return self.use_kernel
+
+    def _require_batch(self) -> None:
+        if not self.use_kernel:
+            raise ValueError(
+                "batched collection requires the kernel path "
+                "(SpotfindConfig.use_kernel / precision='f32' on a CUDA device)"
+            )
+
+    def dispatch_batch(self, images: np.ndarray):
+        """Queue a (B, H, W) frame batch; returns what :meth:`collect_batch`
+        takes.  The whole batch runs as one kernel launch and one sparse
+        pipeline, so the per-frame overhead amortises over B frames."""
+        self._require_batch()
+        return self._batch_step(self._upload(images))
+
+    def dispatch_batch_planes(self, planes: np.ndarray, dtype=np.uint16):
+        """Queue a batch given as LZ4-decoded bitshuffle planes.
+
+        ``planes``: (B, n_blocks, block_elem * elem_size) uint8, each frame's
+        stacked block plane matrix from
+        :func:`ffs_tpu_torch.io.compression.bshuf_lz4_planes` (padded final
+        partial block, no raw tail: the frame's pixel count must be a
+        multiple of 8).  The planes upload as they are and the bit
+        untranspose runs on the device (``ops.bitshuffle_device``); results
+        are bit-identical to :meth:`dispatch_batch` of the decoded frames.
+        """
+        self._require_batch()
+        dt = np.dtype(dtype)
+        check_planes(planes.shape, self.height, self.width, dt.itemsize)
+        frames = frames_from_planes(
+            self._upload(planes), self.height, self.width,
+            torch.uint16 if dt.itemsize == 2 else torch.uint32,
+        )
+        return self._batch_step(frames)
+
+    def collect_batch(
+        self, image_numbers, device_result, images=None, want_com: bool = False
+    ) -> list[FrameResult]:
+        """Wait for a dispatched batch and split it into per-frame results.
+
+        ``images`` (the host frames, any sequence indexable by batch
+        position) enables the per-frame fallback for a frame past the
+        batched per-frame capacity; without it such a frame raises.  Each
+        frame's pixels sit in their own slot segment and spots never bridge
+        frames, so the per-frame slices equal the per-frame path's results.
+        """
+        cfg = self.config
+        kf = self._batch_kf
+        if self.host_cc:
+            pixels, counts, hp = device_result
+        else:
+            pixels, counts, hp, root_lin, table, size_keep, both_keep = device_result
+            if int(table.n_spots) > cfg.max_spots:
+                raise RuntimeError(
+                    f"batch produced {int(table.n_spots)} spots, exceeding "
+                    f"max_spots={cfg.max_spots}; raise SpotfindConfig."
+                    "max_spots or lower the batch size"
+                )
+            roots = _host(root_lin)
+            t = {name: _host(getattr(table, name)) for name in
+                 ("valid", "z_min", "n_pixels", "com_x", "com_y", "com_z")}
+            size_keep, both_keep = _host(size_keep), _host(both_keep)
+        lin, inten, counts = _host(pixels.linear_index), _host(pixels.intensity), _host(counts)
+        pitch = (int(hp) + 1) * self.width
+        results: list[FrameResult] = []
+        for b, num in enumerate(image_numbers):
+            n = int(counts[b])
+            if n > kf:
+                if images is None:
+                    raise RuntimeError(
+                        f"frame {num}: {n} strong pixels exceed the batched "
+                        f"per-frame capacity {kf} and no host frames were "
+                        "provided for the per-frame fallback"
+                    )
+                results.append(self.process_frame(num, images[b], want_com))
+                continue
+            sl = slice(b * kf, b * kf + n)
+            lin_f = lin[sl] - b * pitch
+            if self.host_cc:
+                cp = cc.CompactPixels(linear_index=lin_f, intensity=inten[sl], count=n)
+                results.append(self._collect_host(num, cp, want_com))
+                continue
+            mine = t["valid"] & (t["z_min"] == b)
+            keep_sz = mine & size_keep
+            coms = np.zeros((0, 3))
+            if want_com:
+                kb = mine & both_keep
+                coms = np.stack([t["com_x"][kb], t["com_y"][kb], t["com_z"][kb] - b], axis=1)
+            results.append(
+                FrameResult(
+                    image_number=num,
+                    n_strong_pixels=n,
+                    n_spots=int(keep_sz.sum()),
+                    n_spots_prefilter=int(mine.sum()),
+                    n_strong_pixels_filtered=int(t["n_pixels"][keep_sz].sum()),
+                    pixels=cc3d.FramePixels(
+                        linear_index=lin_f, intensity=inten[sl], root=roots[sl] - b * pitch
+                    ),
+                    centers_of_mass=coms,
+                )
+            )
+        return results
+
+    # --- public per-frame interface ------------------------------------------
 
     def dispatch(self, image: np.ndarray):
         """Queue one frame's device work; returns what :meth:`collect` takes."""

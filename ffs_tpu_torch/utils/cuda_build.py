@@ -125,6 +125,8 @@ def lib() -> ctypes.CDLL:
     kernels.ffs_window_gather_planes.restype = i
     kernels.ffs_window_gather.argtypes = [p, i, i, p, p, i, i, p, p]
     kernels.ffs_window_gather.restype = i
+    kernels.ffs_bitshuffle_frames.argtypes = [p, i, i, i, i, i, p, p]
+    kernels.ffs_bitshuffle_frames.restype = i
     kernels.ffs_cuda_error_string.argtypes = [i]
     kernels.ffs_cuda_error_string.restype = ctypes.c_char_p
     return kernels

@@ -191,3 +191,81 @@ def test_kabsch_integrate_on_gpu_matches_cpu(cuda):
     for name in ("fg_sum", "fg_count", "sum_ix", "sum_iy", "sum_iz", "bg_hist", "bg_overflow",
                  "bg_count"):
         np.testing.assert_array_equal(getattr(accs[0], name), getattr(accs[1], name), err_msg=name)
+
+
+@pytest.mark.parametrize("block_elem", [4096, 2048, 200])
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.uint32])
+def test_bitshuffle_frames_match_plain(cuda, dtype, block_elem):
+    """The decode kernel against its plain version, bit for bit: random
+    plane bytes (every bit pattern), B = 3, a partial final block, default
+    and non-default block sizes."""
+    from ffs_tpu_torch.ops import bitshuffle_device as bd
+
+    s = 2 if dtype == torch.uint16 else 4
+    h, w = 48, 1030  # 49,440 px: a multiple of 8, not of any block size here
+    n_blocks = -(-(h * w) // block_elem)
+    rng = np.random.default_rng(block_elem + s)
+    planes = torch.from_numpy(
+        rng.integers(0, 256, (3, n_blocks, block_elem * s), dtype=np.uint8)).to(cuda)
+    want = bd.frames_from_planes_plain(planes, h, w, dtype)
+    assert torch.equal(want.cpu().view(torch.uint8), bd.frames_from_planes(planes.cpu(), h, w, dtype)
+                       .view(torch.uint8))
+    before = bd.frames_from_planes.launches
+    got = bd.frames_from_planes(planes, h, w, dtype)
+    torch.cuda.synchronize()
+    assert bd.frames_from_planes.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    with pytest.raises(ValueError, match="planes hold"):
+        bd.frames_from_planes(planes[:, :-1], h, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+def test_bitshuffle_frames_decode_the_codec(cuda, dtype):
+    """Frames through the port's codec (LZ4 planes) and the kernel come back
+    as they went in."""
+    from ffs_tpu_torch.io import compression
+    from ffs_tpu_torch.ops import bitshuffle_device as bd
+
+    frames = np.stack([_frame(36, 132, dtype, seed=k)[0] for k in range(2)])
+    planes = np.stack([
+        compression.bshuf_lz4_planes(compression.bshuf_lz4_compress(f, f.dtype.itemsize),
+                                     f.size, f.dtype.itemsize)[0]
+        for f in frames
+    ])
+    tdt = torch.uint16 if dtype == np.uint16 else torch.uint32
+    got = bd.frames_from_planes(torch.from_numpy(planes).to(cuda), 36, 132, tdt)
+    np.testing.assert_array_equal(got.cpu().numpy(), frames)
+
+
+@pytest.mark.parametrize("cc_backend", ["host", "device"])
+def test_batch_on_gpu_matches_cpu(cuda, cc_backend):
+    """The batched path on the card (decode, dispersion kernels) against
+    the same path on the CPU (plain versions): every per-frame result."""
+    from ffs_tpu_torch.io import compression
+    from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
+
+    image, mask = _frame(300, 420, np.uint16, seed=5)
+    stack = np.stack([image, np.roll(image, 17, axis=1), np.zeros_like(image)])
+    planes = np.stack([
+        compression.bshuf_lz4_planes(compression.bshuf_lz4_compress(f, 2), f.size, 2)[0]
+        for f in stack
+    ])
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg = SpotfindConfig(precision="f32", use_kernel=True, cc_backend=cc_backend,
+                             min_spot_size=1)
+        proc = SpotfindProcessor(420, 300, mask, 65535.0, cfg, device=dev)
+        out.append(proc.collect_batch(range(3), proc.dispatch_batch_planes(planes), want_com=True))
+        out.append(proc.collect_batch(range(3), proc.dispatch_batch(stack), want_com=True))
+    assert out[0][0].n_strong_pixels > 0
+    for results in out[1:]:
+        for a, b in zip(out[0], results):
+            assert (a.n_strong_pixels, a.n_spots, a.n_spots_prefilter,
+                    a.n_strong_pixels_filtered) == (b.n_strong_pixels, b.n_spots,
+                                                    b.n_spots_prefilter, b.n_strong_pixels_filtered)
+            for name in ("linear_index", "intensity", "root"):
+                np.testing.assert_array_equal(getattr(a.pixels, name), getattr(b.pixels, name))
+            # exact: every float32 sum here is of integers below 2^24, so the
+            # card's order of atomic adds cannot move a bit
+            np.testing.assert_array_equal(a.centers_of_mass, b.centers_of_mass)
