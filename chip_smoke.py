@@ -48,7 +48,25 @@ import).  Phases, each of which fails the run:
    notice, and the decode, dispersion and extended kernels launched once
    per batch; the golden through ``collect_batch`` from frames and from
    planes; the processor's steady batched frames/s and per-batch upload
-   time beside the per-frame path's.
+   time beside the per-frame path's;
+11. rowcum — both rowcum threshold entries (``dispersion_fused``,
+   ``dispersion_extended_fused``) against their plain versions bit for bit
+   on full Eiger 16M frames (sample images 2 and 5, the seeded Poisson and
+   u32-sentinel frames, the stage tool's B = 8 batch), with and without the
+   mask box count and the strong plane; ``compact_from_rowcum`` and
+   ``compact_from_words`` on image 2 give ``compact_from_pcw``'s 9506
+   pixels; then the stage tool's main (``ffs_tpu_torch.tools.
+   measure_stages``, rowcum and packed rows) with both launch counters
+   rising, and its per-frame and flat pixel lists and spot tables equal to
+   a run on the plain thresholds; times beside the bound and the plain
+   version;
+12. gather variants — the lane-packed, plane-last and probe (double and
+   single) gathers against their plain versions bit for bit at the gather
+   tool's shapes and the integrator's, with windows at the contract's
+   edges; times beside the bound, the plain version and one
+   advanced-indexing call; then the gather tool's main
+   (``ffs_tpu_torch.tools.measure_window_gather``) with its bitwise
+   assertions and the three launch counters rising.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -999,6 +1017,252 @@ def phase_batch_times(dev, sample_planes: np.ndarray) -> None:
         profile_device(f"profile of {name} ({n} frames)", run)
 
 
+def tensors_equal(a, b) -> bool:
+    """Equal values, dtype and shape, for tensors, CompactPixels and spot
+    tables alike (a NamedTuple compares field by field)."""
+    import torch
+
+    if isinstance(a, tuple):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            tensors_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def phase_rowcum(dev):
+    """Kernels 6 and 7 (the rowcum entries) against their plain versions at
+    Eiger 16M, the rowcum and word compactions on image 2, then the stage
+    tool's main path; returns ({kernel: figures}, {kernel: launches})."""
+    import torch
+
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.ops import compact
+    from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
+    from ffs_tpu_torch.ops import dispersion_packed as dp
+    from ffs_tpu_torch.tools import measure_stages as ms
+
+    mask_np = sample_data.generate_mask()
+    tool_frames = ms.make_batch(8, mask_np)  # the stage tool's seed-12 batch
+    inputs = [(f"sample_{i}", sample_data.generate_sample_image(i), mask_np) for i in (2, 5)]
+    inputs += seeded_frames() + [("tool batch B=8", tool_frames, mask_np)]
+    max_err = {"dispersion_fused": 0, "dispersion_extended_fused": 0}
+    for tag, frame, mask in inputs:
+        img = torch.from_numpy(frame).to(dev)
+        msk = torch.from_numpy(mask).to(dev)
+        tm = 65535.0 if frame.dtype == np.uint16 else 1.0e6
+        mbox = dp.mask_box_count(msk)
+        for name, fused, plain, mboxes in (
+            ("dispersion_fused", dp.dispersion_fused, dp.dispersion_fused_plain, (None, mbox)),
+            ("dispersion_extended_fused", dxp.dispersion_extended_fused,
+             dxp.dispersion_extended_fused_plain, (None,)),
+        ):
+            want_strong, want_rowcum = plain(img, msk, tm)
+            for mb in mboxes:
+                for emit in (True, False):
+                    kw = {} if mb is None else {"mbox": mb}
+                    strong, rowcum = fused(img, msk, tm, emit_strong=emit, **kw)
+                    torch.cuda.synchronize()
+                    err = int((rowcum.to(torch.int64) - want_rowcum.to(torch.int64)).abs().max())
+                    if emit:
+                        err = max(err, int((strong.to(torch.int64)
+                                            - want_strong.to(torch.int64)).abs().max()))
+                    elif strong is not None:
+                        fail(f"{name} emit_strong=False returned a strong plane")
+                    max_err[name] = max(max_err[name], err)
+                    if err or rowcum.dtype != torch.int32 or rowcum.shape != img.shape:
+                        fail(f"{name} on {tag} (mbox={mb is not None}, strong={emit}) differs "
+                             f"from its plain version (max |diff| {err})")
+            say(f"kernel {name:27s} {tag:14s} strong px {int(want_rowcum[..., -1].sum()):7d}  "
+                f"bit-equal True (mbox {len(mboxes) > 1}, with and without strong)")
+
+    # the rowcum and word compactions give the packed path's pixels
+    img2 = torch.from_numpy(sample_data.generate_sample_image(2)).to(dev)
+    msk = torch.from_numpy(mask_np).to(dev)
+    mbox = dp.mask_box_count(msk)
+    _, rowcum = dp.dispersion_fused(img2, msk, 65535.0, mbox=mbox, emit_strong=False)
+    from_rowcum = compact.compact_from_rowcum(img2, rowcum, max_pixels=32768)
+    from_words = compact.compact_from_words(img2, *dp.dispersion_packed(img2, msk, 65535.0,
+                                                                           mbox=mbox))
+    from_pcw = compact.compact_from_pcw(img2, dp.dispersion_packed_raw(img2, msk, 65535.0,
+                                                                       mbox=mbox))
+    n = int(from_rowcum.count)
+    if n != 9506 or not (tensors_equal(from_rowcum, from_pcw)
+                         and tensors_equal(from_words, from_pcw)):
+        fail(f"image 2 through the rowcum path: {n} px (want 9506), lists equal to "
+             f"compact_from_pcw's: {tensors_equal(from_rowcum, from_pcw)}, words' "
+             f"{tensors_equal(from_words, from_pcw)}")
+    say("image 2: compact_from_rowcum and compact_from_words give compact_from_pcw's 9506 "
+        "pixels, lists equal")
+
+    # times at the tool's call: the B = 8 batch, mbox, no strong plane
+    batch = torch.from_numpy(tool_frames).to(dev)
+    figures = {}
+    for name, kernel, plain, mbox_bytes in (
+        ("dispersion_fused",
+         lambda: dp.dispersion_fused(batch, msk, 65535.0, mbox=mbox, emit_strong=False),
+         lambda: dp.dispersion_fused_plain(batch, msk, 65535.0, emit_strong=False),
+         mbox.numel() * 2),
+        ("dispersion_extended_fused",
+         lambda: dxp.dispersion_extended_fused(batch, msk, 65535.0, emit_strong=False),
+         lambda: dxp.dispersion_extended_fused_plain(batch, msk, 65535.0, emit_strong=False), 0),
+    ):
+        # compulsory bytes: the frames, the mask (and mbox) read once, rowcum written once
+        nbytes = batch.numel() * 2 + msk.numel() + mbox_bytes + batch.numel() * 4
+        ops_key = "dispersion_packed" if name == "dispersion_fused" else "dispersion_extended_packed"
+        bound = bound_ms(nbytes, DISPERSION_OPS_PER_PX[ops_key] * batch.numel())
+        p1 = cuda_ms(plain, 3)
+        k1 = cuda_ms(kernel, 20)
+        k2 = cuda_ms(kernel, 20)
+        p2 = cuda_ms(plain, 3)
+        figures[name] = {"max_abs_err": max_err[name], "ms": (k1 + k2) / 2,
+                         "plain_ms": (p1 + p2) / 2, "bound": bound, "library_ms": None}
+        say(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms a B=8 "
+            f"Eiger 16M launch ({(k1 + k2) / 16:.4f} ms a frame); bound {bound[0]:.4f} ms "
+            f"({bound[1]}, {nbytes} B); {nbytes / ((k1 + k2) / 2) / 1e9:.3f} TB/s")
+
+    # the stage tool's main path, counters read just after
+    counted = (dp.dispersion_fused, dxp.dispersion_extended_fused, dp.dispersion_packed_raw)
+    for fn in counted:
+        fn.launches = 0
+    ms.main(reps=2, packed=False)
+    ms.main(reps=2, packed=True)
+    torch.cuda.synchronize()
+    launches = {"dispersion_fused": dp.dispersion_fused.launches,
+                "dispersion_extended_fused": dxp.dispersion_extended_fused.launches}
+    say(f"stage tool main-path launches: {launches}, packed rows' dispersion_packed "
+        f"{dp.dispersion_packed_raw.launches}")
+    if min(launches.values()) == 0 or dp.dispersion_packed_raw.launches == 0:
+        fail(f"the stage tool's main path did not launch every threshold kernel: {launches}")
+
+    # its kernel-path outputs against a run on the plain thresholds
+    ctx = ms.StageContext.build(mask_np, dev)
+    ctx_plain = ms.StageContext.build(mask_np, dev, plain=True)
+    for fn in (ms.k_full, ms.flat_full, ms.pk_full, ms.ext_only):
+        for i in (0, 1):
+            _, got = fn(i, batch, ctx)
+            _, want = fn(i, batch, ctx_plain)
+            if not tensors_equal(tuple(got), tuple(want)):
+                fail(f"stage tool {fn.__name__}(i={i}): the kernel path's pixel lists or spot "
+                     "tables differ from the plain path's")
+    say("stage tool: per-frame and flat pixel lists, roots, spot tables and filters (rowcum "
+        "and packed rows) and the extended rowcum equal the plain thresholds' run, i = 0 and 1")
+    for fn in (ms.k_full, ms.flat_full):
+        profile_device(f"profile of the stage tool's {fn.__name__} (B=8)",
+                       lambda fn=fn: fn(1, batch, ctx))
+    return figures, launches
+
+
+def variant_index(fn, kw, y0, x0, bh: int, wp: int, dev):
+    """(rows, cols) of the source pixel each output element of a gather
+    variant copies, broadcastable to its (A', bh, 128) window layout."""
+    import torch
+
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    if fn is wg.window_gather_planes_packed:
+        win = 4 * np.arange(len(y0) // 4)[:, None] + np.arange(128)[None, :] // 32
+        rows = y0[win][:, None, :] + np.arange(bh)[None, :, None]
+        cols = (x0[win] + np.arange(128) % 32)[:, None, :]
+    else:
+        rows = y0[:, None, None] + np.arange(bh)[None, :, None]
+        cols = wg.probe_columns(x0, wp, kw.get("single_only", False))[:, None, :]
+    return torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+
+
+def phase_gather_variants(dev, integ, frames_host):
+    """Kernels 8-10 against their plain versions at the gather tool's shapes
+    and the integrator's, with times at the tool's; then the gather tool's
+    main path.  Returns ({kernel: figures}, {kernel: launches})."""
+    import torch
+
+    from ffs_tpu_torch.ops import window_gather as wg
+    from ffs_tpu_torch.tools import measure_window_gather as mwg
+
+    frames, y0, x0 = mwg.make_inputs(dev)
+    hp, wp = frames.shape[-2:]
+    y0, x0 = y0.astype(np.int64), x0.astype(np.int64)
+    x0[0], y0[1], x0[2] = wp - 129, hp - mwg.BH, 256  # the contract's edges, an aligned start
+    _, _, _, img_i, bh_i, y0_i, x0_i = gather_cases(integ, frames_host)[0]
+    shapes = (("tool", frames, mwg.BH, y0, x0), ("integrator", img_i, bh_i, y0_i, x0_i))
+    kernels = (
+        ("window_gather_planes_packed", "ffs_window_gather_planes_packed",
+         wg.window_gather_planes_packed, wg.window_gather_planes_packed_plain, {}),
+        ("window_gather_planes_pl", "ffs_window_gather_planes_pl", wg.window_gather_planes_pl,
+         wg.window_gather_planes_pl_plain, {}),
+        ("window_gather_probe", "ffs_window_gather_probe", wg.window_gather_probe,
+         wg.window_gather_probe_plain, {"single_only": False}),
+        ("window_gather_probe single", "ffs_window_gather_probe", wg.window_gather_probe,
+         wg.window_gather_probe_plain, {"single_only": True}),
+    )
+    figures = {}
+    for shape_tag, img, bh, yy, xx in shapes:
+        pl = mwg.to_pl(img)
+        for name, entry, fn, plain, kw in kernels:
+            src = pl if fn is wg.window_gather_planes_pl else img
+            want = plain(src, yy, xx, bh=bh, **kw)
+            got = fn(src, yy, xx, bh=bh, **kw)
+            torch.cuda.synchronize()
+            err = int((got.view(torch.int32).to(torch.int64)
+                       - want.view(torch.int32).to(torch.int64)).abs().max())
+            say(f"gather {name:27s} {shape_tag:10s} {tuple(got.shape)} bit-equal {err == 0}")
+            if err or got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"{name} at the {shape_tag}'s shapes differs from its plain version "
+                     f"(max |bit diff| {err})")
+            if shape_tag != "tool":
+                continue
+            # times at the tool's shapes: the kernel alone (offsets on the
+            # card, output allocated once) beside the plain version and one
+            # advanced-indexing call over the same source pixels
+            y0_d, x0_d = wg._device_offsets(yy, xx, dev)
+            extra = {}
+            if fn is wg.window_gather_planes_pl:
+                extra = {"shape": src.shape[:3]}
+            elif fn is wg.window_gather_probe:
+                extra = {"extra": (int(kw["single_only"]), 8)}
+            kernel = lambda: wg._launch(entry, src, y0_d, x0_d, bh, got, **extra)  # noqa: E731
+            rows, cols = variant_index(fn, kw, yy, xx, bh, wp, dev)
+            if fn is wg.window_gather_planes_pl:
+                cb, cl = cols // 128, cols % 128
+                library = lambda: src[rows, cb, :, cl]  # noqa: E731
+            else:
+                library = lambda: src[:, rows, cols]  # noqa: E731
+            p1 = cuda_ms(lambda: plain(src, yy, xx, bh=bh, **kw), 10)
+            k1 = cuda_ms(kernel, 200)
+            lib_ms = cuda_ms(library, 20)
+            k2 = cuda_ms(kernel, 200)
+            p2 = cuda_ms(lambda: plain(src, yy, xx, bh=bh, **kw), 10)
+            # compulsory bytes: the source pixels under the union of what the
+            # windows copy, read once; the output written once; the offsets
+            covered = torch.zeros((hp, wp), dtype=torch.bool, device=dev)
+            covered[rows, cols] = True
+            read = int(covered.sum()) * img.shape[0] * img.element_size()
+            written = got.numel() * got.element_size()
+            nbytes = read + written + 2 * 4 * len(yy)
+            bound = bound_ms(nbytes)
+            if fn.__name__ not in figures:  # the probe's row: its double form
+                figures[fn.__name__] = {"max_abs_err": err, "ms": (k1 + k2) / 2,
+                                        "plain_ms": (p1 + p2) / 2, "bound": bound,
+                                        "library_ms": lib_ms}
+            say(f"time gather {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
+                f"ms, one advanced-indexing call {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                f"({read} B read under the windows' union, {written} B written); "
+                f"{nbytes / ((k1 + k2) / 2) / 1e9:.3f} TB/s")
+
+    profile_device("profile of one gather-tool pf rep (add, gather, sum)",
+                   lambda: wg.window_gather_planes(frames + 1, y0, x0, bh=mwg.BH).sum())
+
+    # the gather tool's main path, counters read just after
+    counted = (wg.window_gather_planes_packed, wg.window_gather_planes_pl, wg.window_gather_probe)
+    for fn in counted:
+        fn.launches = 0
+    mwg.main(reps=3)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    say(f"gather tool main-path launches: {launches}")
+    if min(launches.values()) == 0:
+        fail(f"the gather tool's main path did not launch every variant: {launches}")
+    return figures, launches
+
+
 def main() -> int:
     # the smoke proves the port runs on its own: any import of JAX, of the
     # JAX package or of its benchmark fails
@@ -1073,6 +1337,16 @@ def main() -> int:
     phase_batch_times(dev, sample_planes)
     say(f"processor rates above on {card}")
 
+    # phase 11: the rowcum thresholds and the stage tool's main path
+    rowcum, launches_rc = phase_rowcum(dev)
+    launches.update(launches_rc)
+    say(f"rowcum times above on {card}")
+
+    # phase 12: the gather variants and the gather tool's main path
+    variants, launches_gv = phase_gather_variants(dev, integ_run.integrator, col.frames)
+    launches.update(launches_gv)
+    say(f"gather variant times above on {card}")
+
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
@@ -1084,6 +1358,16 @@ def main() -> int:
                           "ffs_tpu/ops/window_gather.py:460"),
         "bitshuffle_frames": ("ffs_tpu_torch/csrc/bitshuffle_frames.cu",
                               "ffs_tpu/ops/frame_assemble.py:55"),
+        "dispersion_fused": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
+                             "ffs_tpu/ops/dispersion_pallas.py:294"),
+        "dispersion_extended_fused": ("ffs_tpu_torch/csrc/dispersion_extended_packed.cu",
+                                      "ffs_tpu/ops/dispersion_extended_pallas.py:173"),
+        "window_gather_planes_packed": ("ffs_tpu_torch/csrc/window_gather.cu",
+                                        "ffs_tpu/ops/window_gather.py:170"),
+        "window_gather_planes_pl": ("ffs_tpu_torch/csrc/window_gather.cu",
+                                    "ffs_tpu/ops/window_gather.py:327"),
+        "window_gather_probe": ("ffs_tpu_torch/csrc/window_gather.cu",
+                                "tools/measure_window_gather.py:58"),
     }
     figures = {
         name: {"max_abs_err": max_err[name], "ms": t[0], "plain_ms": t[1],
@@ -1092,6 +1376,8 @@ def main() -> int:
     }
     figures.update(gathers)
     figures.update(decode)
+    figures.update(rowcum)
+    figures.update(variants)
     summary = {"kernels": [
         {
             "name": name,

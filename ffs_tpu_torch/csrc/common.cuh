@@ -1,7 +1,7 @@
 // Shared pieces of the dispersion kernels (dispersion_packed.cu,
 // dispersion_extended_packed.cu): tile geometry, the canonical window-sum
-// trees, exact pixel widening, the first-pass tile kernel and the per-row
-// word-prefix scan.
+// trees, exact pixel widening, the first-pass tile kernel, the per-row
+// word-prefix scan and the rowcum expansion of the fused entries.
 //
 // Bit parity with the plain PyTorch versions (ffs_tpu_torch/ops/dispersion.py)
 // rests on three rules kept here:
@@ -175,6 +175,38 @@ pc_scan_kernel(int32_t* __restrict__ pcw, int rows, int nwl, int n_written) {
     if (j < nwl) pc[j] = carry + s;
     carry += __shfl_sync(kFull, s, 31);
   }
+}
+
+// Rowcum output stage of the fused entries (ffs_dispersion_fused,
+// ffs_dispersion_extended_fused): expands finished [pc | w32] rows into the
+// dense per-pixel outputs of the TPU's rowcum kernels,
+//   strong[32j+t] = (w_j >> t) & 1
+//   rowcum[32j+t] = pc[j-1] + popc(w_j & (0xFFFFFFFF >> (31 - t)))
+// (the shift runs 0..31, never 32, which would be undefined).  A thread per
+// pixel and a warp per word: the warp's 32 lanes read the same word and
+// prefix count (one broadcast load each) and write 128 consecutive bytes of
+// rowcum and 32 of strong, so every store is coalesced.  `strong` may be
+// null (emit_strong=False).
+__global__ void __launch_bounds__(kThreads)
+rowcum_expand_kernel(const int32_t* __restrict__ pcw, uint8_t* __restrict__ strong,
+                     int32_t* __restrict__ rowcum, int W, int nwl) {
+  const int col = blockIdx.y * kThreads + threadIdx.x;
+  if (col >= W) return;
+  const size_t row = blockIdx.x;  // b*H + y
+  const int j = col >> 5, t = col & 31;
+  const int32_t* pc = pcw + row * 2 * nwl;
+  const unsigned w = static_cast<unsigned>(pc[nwl + j]);
+  const int before = j > 0 ? pc[j - 1] : 0;
+  const size_t o = row * W + col;
+  rowcum[o] = before + __popc(w & (kFull >> (31 - t)));
+  if (strong != nullptr) strong[o] = static_cast<uint8_t>((w >> t) & 1u);
+}
+
+inline cudaError_t launch_rowcum_expand(const int32_t* pcw, uint8_t* strong, int32_t* rowcum,
+                                        int B, int H, int W, int nwl, cudaStream_t stream) {
+  const dim3 grid(B * H, (W + kThreads - 1) / kThreads);
+  rowcum_expand_kernel<<<grid, kThreads, 0, stream>>>(pcw, strong, rowcum, W, nwl);
+  return cudaGetLastError();
 }
 
 inline dim3 tile_grid(int B, int H, int W) {

@@ -21,6 +21,13 @@
 // planes cost 4 x 18 MB of traffic per Eiger-16M-sized frame that the TPU
 // kernel kept in VMEM.  Fusing the stages into one launch with a 10-pixel
 // image halo removes that traffic and is left to a later change.
+//
+// The second entry, ffs_dispersion_extended_fused, replaces the TPU kernel
+// _ext_kernel in rowcum mode (entry dispersion_extended_fused): the same
+// stages into [pc | w32] scratch rows, then the rowcum expansion of
+// common.cuh (see dispersion_packed.cu for why the prefix is taken from the
+// words rather than folded into a tile kernel).  Outputs: a dense u8 strong
+// plane (optional) and the (B, H, W) int32 inclusive per-row prefix count.
 
 #include "common.cuh"
 
@@ -180,4 +187,21 @@ extern "C" int ffs_dispersion_extended_packed(const void* img, int pixel_type,
     case kI32: return static_cast<int>(launch(int32_t{}));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// As ffs_dispersion_extended_packed, with pcw as (B, H, 2*nwl) int32 scratch,
+// then the dense outputs: strong (B, H, W) u8 or null, rowcum (B, H, W) int32.
+extern "C" int ffs_dispersion_extended_fused(const void* img, int pixel_type, const void* mask,
+                                             const void* mbox, void* first, void* survived,
+                                             void* pcw, void* strong, void* rowcum, int B,
+                                             int H, int W, int nwl, float trusted_max,
+                                             int min_count, float nsig_b, float nsig_s,
+                                             void* stream) {
+  const int rc = ffs_dispersion_extended_packed(img, pixel_type, mask, mbox, first, survived,
+                                                pcw, B, H, W, nwl, trusted_max, min_count,
+                                                nsig_b, nsig_s, stream);
+  if (rc != 0) return rc;
+  return static_cast<int>(ffs_kernels::launch_rowcum_expand(
+      static_cast<const int32_t*>(pcw), static_cast<uint8_t*>(strong),
+      static_cast<int32_t*>(rowcum), B, H, W, nwl, static_cast<cudaStream_t>(stream)));
 }

@@ -6,13 +6,27 @@ same :class:`~ffs_tpu_torch.ops.connected_components.CompactPixels` values
 — strong pixels in raster order, ``BIG`` padding, the exact count — not the
 TPU's gather formulation: here the set bits are expanded from the nonzero
 words only (a few thousand per frame), so no dense plane is rebuilt.
+
+The measurement path's compactions, counterparts of
+``compact_from_rowcum``, ``compact_from_rowcum_flat``, ``compact_from_words``
+and ``compact_from_words_flat``, read the dense per-row prefix counts of
+``dispersion_fused`` (a strong pixel is where the count steps) or the split
+``(w32, pc)`` words.  The flat forms share one capacity across the batch and
+return tall indices ``(b*(H+1) + y)*W + x``; past capacity the first K
+pixels in that order are kept and ``count`` stays the true total.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .connected_components import BIG, CompactPixels, gather_i32, neighbour_slots
+from .connected_components import (
+    BIG,
+    CompactPixels,
+    compact_strong_pixels,
+    gather_i32,
+    neighbour_slots,
+)
 
 
 def _set_bits(words: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -138,3 +152,69 @@ def compact_from_pcw_segmented(
             hit = lin_all[pos] == target
             nb[slot[hit]] = (fb_k * kf + pos - start[fb_k])[hit]
     return pixels, nbu.to(torch.int32), nbd.to(torch.int32), counts
+
+
+def _strong_from_rowcum(rowcum: torch.Tensor) -> torch.Tensor:
+    """Inclusive per-row prefix counts (..., H, W) -> the bool strong plane
+    (the count steps by one at each strong pixel)."""
+    return torch.diff(rowcum, dim=-1, prepend=torch.zeros_like(rowcum[..., :1])) != 0
+
+
+def _tall_pixels(images, fb, y, x, rows: int, count, k: int) -> CompactPixels:
+    """The first ``k`` strong pixels (frame, row, column; raster order over
+    the batch) as tall linear indices with a ``rows + 1`` pitch, their int32
+    intensities and the batch total ``count``."""
+    h_img, w = images.shape[-2], images.shape[-1]
+    n = min(fb.shape[0], k)
+    fb, y, x = fb[:n], y[:n], x[:n]
+    dev = images.device
+    lin = torch.full((k,), BIG, dtype=torch.int32, device=dev)
+    lin[:n] = ((fb * (rows + 1) + y) * w + x).to(torch.int32)
+    inten = torch.zeros(k, dtype=torch.int32, device=dev)
+    inten[:n] = gather_i32(images, (fb * h_img + y) * w + x)
+    return CompactPixels(lin, inten, count)
+
+
+def compact_from_rowcum(
+    image: torch.Tensor, rowcum: torch.Tensor, *, max_pixels: int = 32768
+) -> CompactPixels:
+    """Strong pixels of one (H, W) frame in raster order, from its per-row
+    prefix counts (``dispersion_fused``)."""
+    return compact_strong_pixels(_strong_from_rowcum(rowcum), image, max_pixels=max_pixels)
+
+
+def compact_from_rowcum_flat(
+    images: torch.Tensor, rowcum: torch.Tensor, *, max_pixels_total: int = 65536
+) -> CompactPixels:
+    """A (B, H, W) batch's strong pixels as one tall pixel list, capacity
+    ``max_pixels_total`` shared across the batch."""
+    b, h, w = rowcum.shape
+    _check_i32_sort_keys(b, h + 1, w)
+    fb, y, x = torch.nonzero(_strong_from_rowcum(rowcum), as_tuple=True)
+    count = rowcum[:, :, -1].sum(dtype=torch.int32)
+    return _tall_pixels(images, fb, y, x, h, count, max_pixels_total)
+
+
+def compact_from_words_flat(
+    images: torch.Tensor,
+    words: torch.Tensor,
+    pc: torch.Tensor,
+    *,
+    max_pixels_total: int = 24576,
+) -> CompactPixels:
+    """Tall pixel list of a batch from the split packed rows of
+    ``dispersion_packed``: ``words`` (B, H, nwl) strong bits (bit t of word
+    j = column 32j+t), ``pc`` (B, H, nwl) their inclusive word counts."""
+    b, h, _ = pc.shape
+    _check_i32_sort_keys(b, h + 1, images.shape[-1])
+    fb, y, x = _set_bits(words)
+    count = pc[:, :, -1].sum(dtype=torch.int32)
+    return _tall_pixels(images, fb, y, x, h, count, max_pixels_total)
+
+
+def compact_from_words(
+    image: torch.Tensor, words: torch.Tensor, pc: torch.Tensor, *, max_pixels: int = 32768
+) -> CompactPixels:
+    """One frame's strong pixels from its split packed rows; with a single
+    frame the tall indices are the plain raster indices."""
+    return compact_from_words_flat(image[None], words[None], pc[None], max_pixels_total=max_pixels)

@@ -19,6 +19,15 @@ tensor takes the plain PyTorch version :func:`dispersion_packed_plain`
 launches the kernel in
 ``csrc/dispersion_packed.cu`` or raises.  There is no fallback between the
 two.  ``dispersion_packed_raw.launches`` counts kernel launches.
+
+:func:`dispersion_fused` is the counterpart of
+:func:`ffs_tpu.ops.dispersion_pallas.dispersion_fused`: the same predicate
+emitted densely, a u8 strong plane (unless ``emit_strong=False``) and the
+int32 ``rowcum``, the inclusive per-row prefix count of strong pixels, each
+(B?, H, W).  Its CUDA route runs the packed kernel into scratch rows and
+expands them (``ffs_dispersion_fused`` in ``csrc/dispersion_packed.cu``);
+``dispersion_fused.launches`` counts its launches.  :func:`dispersion_packed`
+splits the combined rows into ``(w32, pc)`` as the JAX wrapper does.
 """
 
 from __future__ import annotations
@@ -120,6 +129,19 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _strong_plain(image, mask, trusted_max, min_count, nsig_b, nsig_s, signal_test):
+    """The float32 threshold of ``ops.dispersion`` (bool, image's shape)."""
+    if signal_test:
+        return dops.dispersion(
+            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+            nsig_s=nsig_s, dtype=torch.float32,
+        )
+    return dops.dispersion_first_pass(
+        image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+        dtype=torch.float32,
+    )
+
+
 def dispersion_packed_plain(
     image: torch.Tensor,
     mask: torch.Tensor,
@@ -132,17 +154,15 @@ def dispersion_packed_plain(
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version, on any device: the float32
     threshold of ``ops.dispersion``, then :func:`pack_pcw`."""
-    if signal_test:
-        strong = dops.dispersion(
-            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
-            nsig_s=nsig_s, dtype=torch.float32,
-        )
-    else:
-        strong = dops.dispersion_first_pass(
-            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
-            dtype=torch.float32,
-        )
+    strong = _strong_plain(image, mask, trusted_max, min_count, nsig_b, nsig_s, signal_test)
     return pack_pcw(strong, nwl_for_width(image.shape[-1]))
+
+
+def rowcum_outputs(strong: torch.Tensor, emit_strong: bool):
+    """Dense bool strong plane -> (strong u8 or None, inclusive per-row
+    prefix count int32), the outputs of the fused (rowcum) entries."""
+    rowcum = torch.cumsum(strong, dim=-1, dtype=torch.int32)
+    return (strong.to(torch.uint8) if emit_strong else None), rowcum
 
 
 def dispersion_packed_raw(
@@ -190,3 +210,91 @@ def dispersion_packed_raw(
 
 
 dispersion_packed_raw.launches = 0
+
+
+def dispersion_packed(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    **kwargs,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dispersion_packed_raw` split into ``(w32, pc)``, each
+    (B?, H, nwl): lane slices of the combined rows, no kernel of its own."""
+    pcw = dispersion_packed_raw(image, mask, trusted_max, **kwargs)
+    nwl = pcw.shape[-1] // 2
+    return pcw[..., nwl:], pcw[..., :nwl]
+
+
+def dispersion_fused_plain(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+    signal_test: bool = True,
+    emit_strong: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """The fused entry's plain PyTorch version, on any device: the float32
+    threshold of ``ops.dispersion``, then a row ``cumsum``."""
+    strong = _strong_plain(image, mask, trusted_max, min_count, nsig_b, nsig_s, signal_test)
+    return rowcum_outputs(strong, emit_strong)
+
+
+def dispersion_fused(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    mbox: torch.Tensor | None = None,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+    radius: int = KERNEL_RADIUS,
+    signal_test: bool = True,
+    emit_strong: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """Dispersion threshold -> (strong u8 or None, rowcum int32), each
+    shaped like ``image``, (H, W) or (B, H, W).
+
+    ``rowcum[..., y, x]`` counts the strong pixels of row y through column
+    x.  ``signal_test=False`` gives the extended algorithm's first pass;
+    ``emit_strong=False`` writes no strong plane and returns (None, rowcum).
+    The JAX entry's ``strip`` tiles VMEM and does not change the result, so
+    the port takes none; ``radius`` must be 3, as the TPU's 7-wide trees.
+    """
+    if radius != KERNEL_RADIUS:
+        raise ValueError(f"radius={radius}: the fused kernel's window trees are 7 wide (radius 3)")
+    _check_inputs(image, mask, mbox)
+    if image.device.type == "cpu":
+        return dispersion_fused_plain(
+            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b,
+            nsig_s=nsig_s, signal_test=signal_test, emit_strong=emit_strong,
+        )
+    if image.device.type != "cuda":
+        raise ValueError(f"no kernel for device {image.device}")
+
+    from ..utils import cuda_build
+
+    frames, mask_c, mbox_c = _cuda_args(image, mask, mbox)
+    b, h, w = frames.shape
+    nwl = nwl_for_width(w)
+    dev = image.device
+    pcw = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=dev)
+    strong = torch.empty((b, h, w), dtype=torch.uint8, device=dev) if emit_strong else None
+    rowcum = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    rc = cuda_build.lib().ffs_dispersion_fused(
+        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
+        _ptr(mbox_c), pcw.data_ptr(), _ptr(strong), rowcum.data_ptr(), b, h, w, nwl,
+        float(trusted_max), int(min_count), float(nsig_b), float(nsig_s), int(signal_test),
+        _stream(dev),
+    )
+    dispersion_fused.launches += 1
+    cuda_build.check(rc, "dispersion_fused kernels")
+    if image.dim() == 2:
+        return (None if strong is None else strong[0]), rowcum[0]
+    return strong, rowcum
+
+
+dispersion_fused.launches = 0

@@ -121,10 +121,24 @@ def lib() -> ctypes.CDLL:
         p, i, p, p, p, p, p, i, i, i, i, f, i, f, f, p,
     ]
     kernels.ffs_dispersion_extended_packed.restype = i
+    kernels.ffs_dispersion_fused.argtypes = [
+        p, i, p, p, p, p, p, i, i, i, i, f, i, f, f, i, p,
+    ]
+    kernels.ffs_dispersion_fused.restype = i
+    kernels.ffs_dispersion_extended_fused.argtypes = [
+        p, i, p, p, p, p, p, p, p, i, i, i, i, f, i, f, f, p,
+    ]
+    kernels.ffs_dispersion_extended_fused.restype = i
     kernels.ffs_window_gather_planes.argtypes = [p, i, i, i, p, p, i, i, p, p]
     kernels.ffs_window_gather_planes.restype = i
     kernels.ffs_window_gather.argtypes = [p, i, i, p, p, i, i, p, p]
     kernels.ffs_window_gather.restype = i
+    kernels.ffs_window_gather_planes_packed.argtypes = [p, i, i, i, p, p, i, i, p, p]
+    kernels.ffs_window_gather_planes_packed.restype = i
+    kernels.ffs_window_gather_planes_pl.argtypes = [p, i, i, i, p, p, i, i, p, p]
+    kernels.ffs_window_gather_planes_pl.restype = i
+    kernels.ffs_window_gather_probe.argtypes = [p, i, i, i, p, p, i, i, i, i, p, p]
+    kernels.ffs_window_gather_probe.restype = i
     kernels.ffs_bitshuffle_frames.argtypes = [p, i, i, i, i, i, p, p]
     kernels.ffs_bitshuffle_frames.restype = i
     kernels.ffs_cuda_error_string.argtypes = [i]

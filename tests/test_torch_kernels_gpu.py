@@ -69,12 +69,44 @@ def test_kernel_matches_plain(cuda, algorithm, pixels, shape):
     assert int(want[:, nwl - 1].sum()) > 0
 
 
+@pytest.mark.parametrize("shape", [(37, 70), (130, 333), (515, 1030)])
+@pytest.mark.parametrize("pixels", [np.uint16, np.uint32, np.int32])
+def test_fused_kernels_match_plain(cuda, pixels, shape):
+    """The rowcum entries against their plain versions, bit for bit, with
+    and without the strong plane (and, for dispersion, the mask box count
+    and the signal test)."""
+    image, mask = _frame(*shape, pixels, seed=shape[1])
+    image[:, 31::32] += pixels(700)  # strong pixels in bit 31 of a word
+    img, msk = torch.from_numpy(image).to(cuda), torch.from_numpy(mask).to(cuda)
+    mbox = tp.mask_box_count(msk)
+    cases = [(txp.dispersion_extended_fused, txp.dispersion_extended_fused_plain, {})]
+    for signal_test in (True, False):
+        cases += [(tp.dispersion_fused, tp.dispersion_fused_plain, dict(signal_test=signal_test))]
+    for fused, plain, kw in cases:
+        want_strong, want_rowcum = plain(img, msk, 65535.0, **kw)
+        assert torch.equal(torch.cumsum(want_strong, -1, dtype=torch.int32), want_rowcum)
+        assert int(want_rowcum[:, -1].sum()) > 0
+        extra = [{}] if fused is txp.dispersion_extended_fused else [{}, {"mbox": mbox}]
+        for more in extra:
+            for emit_strong in (True, False):
+                before = fused.launches
+                strong, rowcum = fused(img, msk, 65535.0, emit_strong=emit_strong, **kw, **more)
+                torch.cuda.synchronize()
+                assert fused.launches == before + 1
+                assert torch.equal(rowcum, want_rowcum)
+                assert (strong is None) if not emit_strong else torch.equal(strong, want_strong)
+
+
 def test_batched_frames(cuda):
     image, mask = _frame(96, 200, np.uint16, seed=1)
     batch = torch.from_numpy(np.stack([image, np.roll(image, 5, axis=0)])).to(cuda)
     msk = torch.from_numpy(mask).to(cuda)
     for raw, plain, _ in KERNELS.values():
         assert torch.equal(raw(batch, msk, 65535.0), plain(batch, msk, 65535.0))
+    for fused, plain in ((tp.dispersion_fused, tp.dispersion_fused_plain),
+                         (txp.dispersion_extended_fused, txp.dispersion_extended_fused_plain)):
+        for got, want in zip(fused(batch, msk, 65535.0), plain(batch, msk, 65535.0)):
+            assert got.shape == batch.shape and torch.equal(got, want)
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -148,6 +180,41 @@ def test_window_gathers_match_plain(cuda, dtype, planes):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     with pytest.raises(ValueError, match="x0"):
         fn(src, y0, np.full(a, wp - 128), bh=bh)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_gather_variants_match_plain(cuda, dtype):
+    """The packed, plane-last and probe gathers against their plain
+    versions, bit for bit, with windows at the contract's edges."""
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    rng = np.random.default_rng(9)
+    planes, hp, wp, bh, a = 4, 70, 512, 24, 300
+    img = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (planes, hp, wp), dtype=np.int64)
+                           .astype(np.int32)).to(cuda).view(dtype)
+    pl = img.reshape(planes, hp, wp // 128, 128).permute(1, 2, 0, 3).contiguous()
+    y0 = rng.integers(0, hp - bh + 1, a)
+    x0 = rng.integers(0, wp - 128, a)
+    y0[:3], x0[:3] = [hp - bh, 0, 5], [wp - 129, wp - 129, 256]
+    cases = [
+        (wg.window_gather_planes_packed, wg.window_gather_planes_packed_plain, img, {}),
+        (wg.window_gather_planes_pl, wg.window_gather_planes_pl_plain, pl, {}),
+    ] + [
+        (wg.window_gather_probe, wg.window_gather_probe_plain, img,
+         dict(single_only=single, r=r))
+        for single in (False, True) for r in (1, 8, 16)
+    ]
+    pf = wg.window_gather_planes_plain(img, y0, x0, bh=bh)
+    for fn, plain, src, kw in cases:
+        want = plain(src, y0, x0, bh=bh, **kw)
+        before = fn.launches
+        got = fn(src, y0, x0, bh=bh, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (fn.__name__, kw)
+        if fn is not wg.window_gather_planes_packed and not kw.get("single_only"):
+            assert torch.equal(got.view(torch.int32), pf.view(torch.int32))
 
 
 def test_kabsch_integrate_on_gpu_matches_cpu(cuda):
