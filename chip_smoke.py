@@ -8,12 +8,15 @@ needs no network, and neither JAX nor the JAX package (both are blocked from
 import).  Phases, each of which fails the run:
 
 1. device — a CUDA device must exist; prints the card's name and power limit;
-2. build — compiles every CUDA kernel from ``ffs_tpu_torch/csrc`` with nvcc;
+2. build — compiles every CUDA kernel from ``ffs_tpu_torch/csrc`` with nvcc
+   and prints ptxas's registers, shared memory and spills of the two
+   dispersion walkers;
 3. kernels — each dispersion kernel against its plain PyTorch version on the
    card, bit for bit over the whole packed output, on full Eiger 16M frames
    (sample images 2 and 5, a seeded Poisson frame with spots and module
-   gaps, a u32 frame with 0xFFFFFFFF sentinels), with and without the mask
-   box count;
+   gaps, a u32 frame with 0xFFFFFFFF sentinels, a frame whose 5x5 spots
+   straddle every strip and segment boundary of both walkers' launches),
+   with and without the mask box count;
 4. spotfinder main path — the ``spotfinder`` CLI in-process on the six
    sample frames, f32 (kernels) and f64, both algorithms, reading the pipe
    JSON and holding the anchors (image 2: 9506 px / 9506 spots; image 5:
@@ -23,7 +26,10 @@ import).  Phases, each of which fails the run:
    against tests/data/bench_anchor_golden.npz (every column, peak_intensity
    included);
 6. times — kernel and plain version per algorithm at Eiger 16M with CUDA
-   events, the CLI's frames/s, and the processor's steady frames/s and
+   events: one frame a launch, a B = 8 launch of distinct frames, and the
+   Jungfrau 1M B = 112 batch, each beside its byte bound, with the
+   torch.profiler device time of the walker and scan launches beside the
+   events; the CLI's frames/s, and the processor's steady frames/s and
    per-stage times on frames already in host memory;
 7. integrator main path — a seeded synthetic rotation collection at Eiger
    16M (thaumatin cell, 0.1 degree images, 40 of a 3600-image sweep) goes
@@ -157,6 +163,49 @@ def seeded_frames():
     return [("poisson_u16", frame, mask), ("sentinel_u32", u32, mask)]
 
 
+def straddling_frame(dev) -> tuple[str, np.ndarray, np.ndarray]:
+    """A seeded Eiger 16M u16 frame whose 5x5 Poisson(80) spots sit on every
+    strip boundary column and segment boundary row (and their crossings) of
+    both walkers' single-frame launches, over a Poisson(4) background and
+    the sample mask."""
+    import torch
+
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
+    from ffs_tpu_torch.ops import dispersion_packed as dp
+
+    h, w = SIDE
+    rng = np.random.default_rng(20261017)
+    cols, rows = set(), set()
+    probe = torch.empty((1, h, w), dtype=torch.uint16, device=dev)
+    for t in (dp.launch_tiling(probe, 3, False, True),
+              dp.launch_tiling(probe, dxp.HALO, True, False)):
+        cols |= {s * t.wps * 32 for s in range(1, t.strips)}
+        rows |= {g * t.seg_rows for g in range(1, t.segs)}
+    centres = [(y, x) for y in sorted(rows) for x in range(7, w - 7, 53)]
+    centres += [(y, x) for x in sorted(cols) for y in range(7, h - 7, 47)]
+    centres += [(y, x) for y in sorted(rows) for x in sorted(cols)]
+    frame = rng.poisson(4.0, size=(h, w)).astype(np.uint16)
+    for y, x in centres:
+        box = frame[max(y - 2, 0) : y + 3, x - 2 : x + 3]
+        box += rng.poisson(80, size=box.shape).astype(np.uint16)
+    mask = sample_data.generate_mask()
+    frame[mask == 0] = 0
+    return "straddle_u16", frame, mask
+
+
+@functools.lru_cache(maxsize=None)
+def jungfrau_batch(b: int = 112, seed: int = 5) -> tuple[np.ndarray, np.ndarray]:
+    """(frames, mask): b seeded 1066 x 1030 u16 frames with 60 3x3 spots each
+    over a Poisson(2) base and a 42-row module gap band: the JAX bench's
+    Jungfrau 1M batch (bench.py), through the stage tool's generator."""
+    from ffs_tpu_torch.tools.measure_stages import make_batch
+
+    mask = np.ones((1066, 1030), np.uint8)
+    mask[533 : 533 + 42] = 0
+    return make_batch(b, mask, spots=60, seed=seed), mask
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version; returns per-kernel max error."""
     import torch
@@ -168,7 +217,7 @@ def phase_kernels(dev):
     mask_np = sample_data.generate_mask()
     inputs = [
         (f"sample_{i}", sample_data.generate_sample_image(i), mask_np) for i in (2, 5)
-    ] + seeded_frames()
+    ] + seeded_frames() + [straddling_frame(dev)]
     kernels = {
         "dispersion_packed": (dp.dispersion_packed_raw, dp.dispersion_packed_plain, dp.mask_box_count),
         "dispersion_extended_packed": (
@@ -332,35 +381,80 @@ def bound_ms(nbytes: int, ops: float = 0.0) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def profiled_ms(fn, reps: int, names: tuple[str, ...]) -> dict[str, float]:
+    """Device ms per call of ``fn`` spent in kernels whose names contain each
+    of ``names`` (torch.profiler over ``reps`` calls; absent if the profiler
+    saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        for n in names:
+            if n in e.key:
+                out[n] = out.get(n, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
 def phase_times(dev):
-    """Kernel and plain version at Eiger 16M (sample image 5), device ms,
-    and the kernel's bound from this frame's bytes and operations."""
+    """Each threshold kernel and its plain version at Eiger 16M (sample image
+    5, one frame a launch; the stage tool's B = 8 batch) and on the Jungfrau
+    1M B = 112 batch, device ms by CUDA events and by the profiler, beside
+    the bound from each call's bytes (frames and words; the mask once a
+    launch) and operations.  Returns the one-frame figures for the summary."""
     import torch
 
     from ffs_tpu_torch.io import sample_data
     from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
     from ffs_tpu_torch.ops import dispersion_packed as dp
+    from ffs_tpu_torch.tools import measure_stages as ms
 
-    img = torch.from_numpy(sample_data.generate_sample_image(5)).to(dev)
-    msk = torch.from_numpy(sample_data.generate_mask()).to(dev)
+    mask_np = sample_data.generate_mask()
+    msk = torch.from_numpy(mask_np).to(dev)
+    jf_frames, jf_mask = jungfrau_batch()
+    cases = (
+        ("Eiger 16M x1", torch.from_numpy(sample_data.generate_sample_image(5)).to(dev), msk),
+        ("Eiger 16M x8", torch.from_numpy(ms.make_batch(8, mask_np)).to(dev), msk),
+        ("Jungfrau 1M x112", torch.from_numpy(jf_frames).to(dev),
+         torch.from_numpy(jf_mask).to(dev)),
+    )
     out = {}
-    for name, raw, plain, mbox_fn in (
-        ("dispersion_packed", dp.dispersion_packed_raw, dp.dispersion_packed_plain, dp.mask_box_count),
+    for name, raw, plain, walker in (
+        ("dispersion_packed", dp.dispersion_packed_raw, dp.dispersion_packed_plain,
+         "dispersion_walker"),
         ("dispersion_extended_packed", dxp.dispersion_extended_packed_raw,
-         dxp.dispersion_extended_packed_plain, dxp.mask_box_count_extended),
+         dxp.dispersion_extended_packed_plain, "extended_walker"),
     ):
-        mbox = mbox_fn(msk)
-        out_t = raw(img, msk, 65535.0, mbox=mbox)
-        nbytes = sum(t.numel() * t.element_size() for t in (img, msk, mbox, out_t))
-        bound = bound_ms(nbytes, DISPERSION_OPS_PER_PX[name] * img.numel())
-        # plain, kernel, kernel, plain: the means of each pair
-        p1 = cuda_ms(lambda: plain(img, msk, 65535.0), 10)
-        k1 = cuda_ms(lambda: raw(img, msk, 65535.0, mbox=mbox), 50)
-        k2 = cuda_ms(lambda: raw(img, msk, 65535.0, mbox=mbox), 50)
-        p2 = cuda_ms(lambda: plain(img, msk, 65535.0), 10)
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound)
-        say(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per Eiger 16M frame; "
-            f"bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} B)")
+        for tag, img, m in cases:
+            out_t = raw(img, m, 65535.0)
+            n = img.shape[0] if img.dim() == 3 else 1
+            # compulsory bytes: the frames and the words, the mask once a launch
+            nbytes = sum(t.numel() * t.element_size() for t in (img, m, out_t))
+            bound = bound_ms(nbytes, DISPERSION_OPS_PER_PX[name] * img.numel())
+            reps = 50 if n == 1 else 20 if n == 8 else 5
+            kernel = lambda: raw(img, m, 65535.0)  # noqa: E731  (the processor's call)
+            # plain, kernel, kernel, plain: the means of each pair
+            p1 = cuda_ms(lambda: plain(img, m, 65535.0), 10 if n == 1 else 2)
+            k1 = cuda_ms(kernel, reps)
+            k2 = cuda_ms(kernel, reps)
+            p2 = cuda_ms(lambda: plain(img, m, 65535.0), 10 if n == 1 else 2)
+            prof = profiled_ms(kernel, reps, (walker, "pc_scan"))
+            k = (k1 + k2) / 2
+            say(f"time {name} {tag}: kernel {k1:.4f} / {k2:.4f} ms a launch ({k / n:.5f} a frame), "
+                f"profiler {prof.get(walker, float('nan')):.4f} walker + "
+                f"{prof.get('pc_scan', float('nan')):.4f} scan ms a launch; plain {p1:.4f} / "
+                f"{p2:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} B), "
+                f"{100 * bound[0] / k:.1f}% of it; {nbytes / k / 1e9:.3f} TB/s")
+            if tag == "Eiger 16M x1":
+                out[name] = (k, (p1 + p2) / 2, *bound)
     return out
 
 
@@ -1096,17 +1190,17 @@ def phase_rowcum(dev):
     # times at the tool's call: the B = 8 batch, mbox, no strong plane
     batch = torch.from_numpy(tool_frames).to(dev)
     figures = {}
-    for name, kernel, plain, mbox_bytes in (
+    for name, kernel, plain in (
         ("dispersion_fused",
          lambda: dp.dispersion_fused(batch, msk, 65535.0, mbox=mbox, emit_strong=False),
-         lambda: dp.dispersion_fused_plain(batch, msk, 65535.0, emit_strong=False),
-         mbox.numel() * 2),
+         lambda: dp.dispersion_fused_plain(batch, msk, 65535.0, emit_strong=False)),
         ("dispersion_extended_fused",
          lambda: dxp.dispersion_extended_fused(batch, msk, 65535.0, emit_strong=False),
-         lambda: dxp.dispersion_extended_fused_plain(batch, msk, 65535.0, emit_strong=False), 0),
+         lambda: dxp.dispersion_extended_fused_plain(batch, msk, 65535.0, emit_strong=False)),
     ):
-        # compulsory bytes: the frames, the mask (and mbox) read once, rowcum written once
-        nbytes = batch.numel() * 2 + msk.numel() + mbox_bytes + batch.numel() * 4
+        # compulsory bytes: the frames and the mask read once, rowcum written
+        # once (the tool still passes mbox, which the walker does not read)
+        nbytes = batch.numel() * 2 + msk.numel() + batch.numel() * 4
         ops_key = "dispersion_packed" if name == "dispersion_fused" else "dispersion_extended_packed"
         bound = bound_ms(nbytes, DISPERSION_OPS_PER_PX[ops_key] * batch.numel())
         p1 = cuda_ms(plain, 3)
@@ -1292,6 +1386,14 @@ def main() -> int:
     so_path = cuda_build.build()
     cuda_build.lib()
     say(f"build: {time.perf_counter() - t0:.1f} s -> {so_path.relative_to(ROOT)}")
+    log = cuda_build.build_log().splitlines()
+    for k, line in enumerate(log):  # ptxas: "Function properties for <kernel>", then its figures
+        if "Function properties for" in line and "walker" in line:
+            kernel = re.search(r"(dispersion_walker|extended_walker)I([tji])(Lb1)?", line)
+            pixel = {"t": "u16", "j": "u32", "i": "i32"}[kernel.group(2)]
+            signal = ", signal test" if kernel.group(3) else ""
+            figures = " ".join(x.split(":", 1)[-1].strip() for x in log[k + 1 : k + 3])
+            say(f"ptxas {kernel.group(1)}<{pixel}{signal}>: {figures}")
 
     # phase 3: kernels against their plain versions
     from ffs_tpu_torch.utils import torchinit

@@ -8,8 +8,9 @@ background-mean test), then the [pc | w32] bit pack of
 :mod:`ops.dispersion_packed` with ``nwl = nwl_for_width(W, HALO)`` (HALO = 10).
 
 A CPU tensor takes the plain PyTorch version
-:func:`dispersion_extended_packed_plain`; a CUDA tensor
-launches the kernels in ``csrc/dispersion_extended_packed.cu`` or raises.
+:func:`dispersion_extended_packed_plain`; a CUDA tensor launches the kernel
+in ``csrc/dispersion_extended_packed.cu`` (all three stages in one launch,
+no intermediate plane, then the row scan) or raises.
 ``dispersion_extended_packed_raw.launches`` counts kernel launches.
 
 :func:`dispersion_extended_fused` is the counterpart of
@@ -40,6 +41,7 @@ from .dispersion_packed import (
     _cuda_args,
     _ptr,
     _stream,
+    launch_tiling,
     mask_box_count,
     nwl_for_width,
     pack_pcw,
@@ -54,11 +56,10 @@ HALO = KERNEL_RADIUS_EXTENDED + EROSION_CHEBYSHEV_DISTANCE + KERNEL_RADIUS
 def mask_box_count_extended(mask: torch.Tensor) -> torch.Tensor:
     """Frame-invariant first-pass mask box count, (H, W) u16.
 
-    The JAX package keeps this on a padded strip canvas; the CUDA kernel
-    reads the first-pass count only at in-frame pixels (out-of-frame pixels
-    are masked and never background), so the port keeps the plain (H, W)
-    grid — the same array as :func:`mask_box_count` — and the kernel
-    wrapper checks its shape against the mask.
+    The JAX package keeps this on a padded strip canvas; the port keeps the
+    plain (H, W) grid, the same array as :func:`mask_box_count`.  The
+    kernel wrapper checks its shape against the mask and does not read it:
+    the kernel counts the window from the mask bits it reads anyway.
     """
     return mask_box_count(mask, KERNEL_RADIUS)
 
@@ -98,7 +99,9 @@ def dispersion_extended_packed_raw(
     """Extended dispersion -> (B?, H, 2*nwl) int32 [pc | w32] rows.
 
     ``image`` (H, W) or (B, H, W) uint16, uint32 or int32; ``mask`` (H, W) uint8;
-    ``mbox`` the optional :func:`mask_box_count_extended`.
+    ``mbox`` the optional :func:`mask_box_count_extended`, checked for shape
+    and not read (an integer window count the kernel takes from the mask
+    bits it reads anyway, at no device-memory cost).
     """
     _check_inputs(image, mask, mbox)
     if image.device.type == "cpu":
@@ -111,22 +114,18 @@ def dispersion_extended_packed_raw(
 
     from ..utils import cuda_build
 
-    frames, mask_c, mbox_c = _cuda_args(image, mask, mbox)
+    frames, mask_c = _cuda_args(image, mask, mbox)
     b, h, w = frames.shape
     nwl = nwl_for_width(w, HALO)
-    dev = image.device
-    # per-stage planes: first-pass and survived masks (u8, one per frame)
-    first = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    survived = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=dev)
+    tiling = launch_tiling(frames, HALO, True, False)
+    out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=image.device)
     rc = cuda_build.lib().ffs_dispersion_extended_packed(
-        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
-        _ptr(mbox_c), first.data_ptr(), survived.data_ptr(), out.data_ptr(),
-        b, h, w, nwl, float(trusted_max), int(min_count), float(nsig_b),
-        float(nsig_s), _stream(dev),
+        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(), out.data_ptr(),
+        b, h, w, nwl, tiling.wps, tiling.seg_rows, float(trusted_max), int(min_count),
+        float(nsig_b), float(nsig_s), _stream(image.device),
     )
     dispersion_extended_packed_raw.launches += 1
-    cuda_build.check(rc, "dispersion_extended_packed kernels")
+    cuda_build.check(rc, "dispersion_extended_packed kernel")
     return out if image.dim() == 3 else out[0]
 
 
@@ -175,20 +174,18 @@ def dispersion_extended_fused(
 
     from ..utils import cuda_build
 
-    frames, mask_c, _ = _cuda_args(image, mask, None)
+    frames, mask_c = _cuda_args(image, mask, None)
     b, h, w = frames.shape
     nwl = nwl_for_width(w, HALO)
+    tiling = launch_tiling(frames, HALO, True, False)
     dev = image.device
-    first = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    survived = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
     pcw = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=dev)
     strong = torch.empty((b, h, w), dtype=torch.uint8, device=dev) if emit_strong else None
     rowcum = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     rc = cuda_build.lib().ffs_dispersion_extended_fused(
-        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(), None,
-        first.data_ptr(), survived.data_ptr(), pcw.data_ptr(), _ptr(strong),
-        rowcum.data_ptr(), b, h, w, nwl, float(trusted_max), int(min_count),
-        float(nsig_b), float(nsig_s), _stream(dev),
+        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(), pcw.data_ptr(),
+        _ptr(strong), rowcum.data_ptr(), b, h, w, nwl, tiling.wps, tiling.seg_rows,
+        float(trusted_max), int(min_count), float(nsig_b), float(nsig_s), _stream(dev),
     )
     dispersion_extended_fused.launches += 1
     cuda_build.check(rc, "dispersion_extended_fused kernels")

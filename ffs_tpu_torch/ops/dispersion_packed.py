@@ -16,9 +16,10 @@ the host compaction (ops.compact_host) reads the same array.
 :func:`dispersion_packed_raw` picks by the image tensor's device: a CPU
 tensor takes the plain PyTorch version :func:`dispersion_packed_plain`
 (``ops.dispersion`` in float32, then :func:`pack_pcw`); a CUDA tensor
-launches the kernel in
-``csrc/dispersion_packed.cu`` or raises.  There is no fallback between the
-two.  ``dispersion_packed_raw.launches`` counts kernel launches.
+launches the kernel in ``csrc/dispersion_packed.cu`` (a row walker, tiled
+by :func:`walker_tiling`, then the row scan) or raises.  There is no
+fallback between the two.  ``dispersion_packed_raw.launches`` counts kernel
+launches.
 
 :func:`dispersion_fused` is the counterpart of
 :func:`ffs_tpu.ops.dispersion_pallas.dispersion_fused`: the same predicate
@@ -31,6 +32,9 @@ splits the combined rows into ``(w32, pc)`` as the JAX wrapper does.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -55,11 +59,10 @@ def nwl_for_width(w: int, halo: int = KERNEL_RADIUS) -> int:
 
 
 def mask_box_count(mask: torch.Tensor, radius: int = KERNEL_RADIUS) -> torch.Tensor:
-    """Per-pixel count of valid mask pixels in the (2r+1)^2 window, as u16.
-
-    Frame-invariant: computed once per collection and passed to the kernel
-    as ``mbox`` so it never re-sums the mask grid.
-    """
+    """Per-pixel count of valid mask pixels in the (2r+1)^2 window, as u16:
+    the frame-invariant ``mbox`` of the JAX entries.  The CUDA kernels take
+    it for that signature's sake and do not read it (see
+    :func:`dispersion_packed_raw`)."""
     counts = box_sum((mask != 0).to(torch.int32), radius)
     return counts.to(torch.int16).view(torch.uint16)  # counts <= (2r+1)^2
 
@@ -86,6 +89,82 @@ def pack_pcw(strong: torch.Tensor, nwl: int) -> torch.Tensor:
 # pixel_type codes of the C entry points (csrc/common.cuh PixelType)
 PIXEL_TYPES = {torch.uint16: 0, torch.uint32: 1, torch.int32: 2}
 
+# The row walker of csrc/common.cuh: a block owns a strip of at most 30
+# words (16 + 8*30 = 256 threads) and a segment of rows, which it walks down
+# after a warm-up of twice the kernel's halo rows.
+WALKER_MAX_WORDS = 30
+
+
+class WalkerTiling(NamedTuple):
+    wps: int  # words a strip
+    strips: int
+    seg_rows: int  # rows a segment (the last may be shorter)
+    segs: int
+
+
+def strip_words(w: int) -> tuple[int, int]:
+    """(words a strip, strips): equal strips covering the ceil(w/32) words."""
+    words = -(-w // 32)
+    strips = -(-words // WALKER_MAX_WORDS)
+    return -(-words // strips), strips
+
+
+def walker_threads(wps: int) -> int:
+    """Threads of a walker block: 8 a word plus 8 halo threads each side."""
+    return 16 + 8 * wps
+
+
+@functools.lru_cache(maxsize=256)
+def walker_tiling(b: int, h: int, w: int, halo: int, slots: int) -> WalkerTiling:
+    """The walker kernels' grid for ``b`` frames of ``h`` x ``w`` with a
+    ``halo``-row warm-up above and below each segment, on a card that holds
+    ``slots`` blocks at once.  The segment count minimises the modelled
+    time, waves x (rows a segment + 2 halo), so that the grid fills whole
+    waves without paying too much warm-up; a segment is at least 2 halo
+    rows tall unless it is the whole frame.  Block (s, g, f) writes words
+    [s*wps, min((s+1)*wps, ceil(w/32))) of rows [g*seg_rows,
+    min((g+1)*seg_rows, h)) of frame f."""
+    wps, strips = strip_words(w)
+    best = None
+    for segs in range(1, h + 1):
+        seg_rows = -(-h // segs)
+        if -(-h // seg_rows) != segs:  # the same segments as a smaller count
+            continue
+        if segs > 1 and seg_rows < 2 * halo:
+            break
+        cost = -(-(strips * b * segs) // slots) * (seg_rows + 2 * halo)
+        if best is None or cost < best[0]:
+            best = (cost, seg_rows, segs)
+    return WalkerTiling(wps, strips, best[1], best[2])
+
+
+@functools.lru_cache(maxsize=64)
+def walker_slots(extended: bool, pixel_type: int, signal_test: bool, w: int,
+                 device_index: int) -> int:
+    """Walker blocks the card holds at once for frames ``w`` wide: the
+    kernel's resident blocks a multiprocessor (CUDA's occupancy query)
+    times the multiprocessors."""
+    from ..utils import cuda_build
+
+    threads = walker_threads(strip_words(w)[0])
+    lib = cuda_build.lib()
+    if extended:
+        per_sm = lib.ffs_extended_walker_blocks_per_sm(pixel_type, threads)
+    else:
+        per_sm = lib.ffs_dispersion_walker_blocks_per_sm(pixel_type, int(signal_test), threads)
+    if per_sm < 1:
+        raise RuntimeError(f"walker occupancy query failed ({per_sm}) for {threads} threads")
+    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def launch_tiling(frames: torch.Tensor, halo: int, extended: bool,
+                  signal_test: bool) -> WalkerTiling:
+    """The tiling a walker launch uses for these (B, H, W) CUDA frames."""
+    b, h, w = frames.shape
+    dev = frames.device.index if frames.device.index is not None else torch.cuda.current_device()
+    slots = walker_slots(extended, PIXEL_TYPES[frames.dtype], signal_test, w, dev)
+    return walker_tiling(b, h, w, halo, slots)
+
 
 def _check_inputs(image, mask, mbox):
     if image.dtype not in PIXEL_TYPES:
@@ -104,7 +183,7 @@ def _check_inputs(image, mask, mbox):
 
 
 def _cuda_args(image, mask, mbox):
-    """Validate a kernel call's tensors; returns (frames (B,H,W), mask, mbox)."""
+    """Validate a kernel call's tensors; returns (frames (B,H,W), mask)."""
     dev = image.device
     for name, t in (("mask", mask), ("mbox", mbox)):
         if t is not None and t.device != dev:
@@ -114,11 +193,7 @@ def _cuda_args(image, mask, mbox):
     if mbox is not None and mbox.dtype != torch.uint16:
         raise TypeError(f"mbox must be uint16, got {mbox.dtype}")
     frames = image if image.dim() == 3 else image[None]
-    return (
-        frames.contiguous(),
-        mask.contiguous(),
-        None if mbox is None else mbox.contiguous(),
-    )
+    return frames.contiguous(), mask.contiguous()
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -180,7 +255,10 @@ def dispersion_packed_raw(
 
     ``image`` (H, W) or (B, H, W) uint16, uint32 or int32 (CBF data);
     ``mask`` (H, W) uint8; ``mbox`` the optional frame-invariant
-    :func:`mask_box_count`.
+    :func:`mask_box_count`, checked for shape and not read: the kernel
+    counts the 7x7 mask window itself from the mask it reads anyway (an
+    integer sum, exact in any order), which costs no device-memory bytes,
+    where reading the u16 count cost 36 MB an Eiger 16M frame.
     ``signal_test=False`` gives the extended algorithm's first pass.
     """
     _check_inputs(image, mask, mbox)
@@ -194,13 +272,14 @@ def dispersion_packed_raw(
 
     from ..utils import cuda_build
 
-    frames, mask_c, mbox_c = _cuda_args(image, mask, mbox)
+    frames, mask_c = _cuda_args(image, mask, mbox)
     b, h, w = frames.shape
     nwl = nwl_for_width(w)
+    tiling = launch_tiling(frames, KERNEL_RADIUS, False, signal_test)
     out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=image.device)
     rc = cuda_build.lib().ffs_dispersion_packed(
         frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
-        _ptr(mbox_c), out.data_ptr(), b, h, w, nwl, float(trusted_max),
+        out.data_ptr(), b, h, w, nwl, tiling.wps, tiling.seg_rows, float(trusted_max),
         int(min_count), float(nsig_b), float(nsig_s), int(signal_test),
         _stream(image.device),
     )
@@ -277,18 +356,19 @@ def dispersion_fused(
 
     from ..utils import cuda_build
 
-    frames, mask_c, mbox_c = _cuda_args(image, mask, mbox)
+    frames, mask_c = _cuda_args(image, mask, mbox)
     b, h, w = frames.shape
     nwl = nwl_for_width(w)
+    tiling = launch_tiling(frames, KERNEL_RADIUS, False, signal_test)
     dev = image.device
     pcw = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=dev)
     strong = torch.empty((b, h, w), dtype=torch.uint8, device=dev) if emit_strong else None
     rowcum = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     rc = cuda_build.lib().ffs_dispersion_fused(
         frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
-        _ptr(mbox_c), pcw.data_ptr(), _ptr(strong), rowcum.data_ptr(), b, h, w, nwl,
-        float(trusted_max), int(min_count), float(nsig_b), float(nsig_s), int(signal_test),
-        _stream(dev),
+        pcw.data_ptr(), _ptr(strong), rowcum.data_ptr(), b, h, w, nwl,
+        tiling.wps, tiling.seg_rows, float(trusted_max), int(min_count), float(nsig_b),
+        float(nsig_s), int(signal_test), _stream(dev),
     )
     dispersion_fused.launches += 1
     cuda_build.check(rc, "dispersion_fused kernels")

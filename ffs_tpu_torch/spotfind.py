@@ -50,11 +50,8 @@ from .ops import connected_components as cc
 from .ops import dispersion as dops
 from .ops.bitshuffle_device import check_planes, frames_from_planes
 from .ops.compact import compact_from_pcw, compact_from_pcw_segmented
-from .ops.dispersion_extended_packed import (
-    dispersion_extended_packed_raw,
-    mask_box_count_extended,
-)
-from .ops.dispersion_packed import dispersion_packed_raw, mask_box_count
+from .ops.dispersion_extended_packed import dispersion_extended_packed_raw
+from .ops.dispersion_packed import dispersion_packed_raw
 from .ops.masking import resolution_mask
 
 
@@ -211,13 +208,6 @@ class SpotfindProcessor:
         # separation filter evaluates in float32; float64 everywhere else
         self._sep_dtype = torch.float32 if self.use_kernel else torch.float64
 
-        # frame-invariant mask box count, once per collection
-        self.mbox = None
-        if self.use_kernel and cfg.algorithm == "dispersion":
-            self.mbox = mask_box_count(self.mask)
-        elif self.use_kernel:
-            self.mbox = mask_box_count_extended(self.mask)
-
         # compaction capacity tiers of the tiered path: typical frames
         # compact at K=4096 instead of the worst-case maximum
         self._capacity_tiers = sorted(
@@ -243,8 +233,8 @@ class SpotfindProcessor:
             else dispersion_extended_packed_raw
         )
         return fn(
-            image, self.mask, self.trusted_max, mbox=self.mbox,
-            min_count=cfg.min_count, nsig_b=cfg.nsig_b, nsig_s=cfg.nsig_s,
+            image, self.mask, self.trusted_max, min_count=cfg.min_count,
+            nsig_b=cfg.nsig_b, nsig_s=cfg.nsig_s,
         )
 
     def _count_step(self, image: torch.Tensor):

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
     "-prec-div=true",
     "-prec-sqrt=true",
     "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills: the build log
 )
 
 
@@ -69,10 +70,20 @@ def _nvcc() -> str:
     return found
 
 
+def _so_path() -> pathlib.Path:
+    return BUILD_DIR / f"libffs_kernels-{_digest()}.so"
+
+
+def build_log() -> str:
+    """nvcc's output of the library's build (ptxas's resource lines)."""
+    return _so_path().with_suffix(".log").read_text()
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists; return
-    its path.  Raises RuntimeError with nvcc's output when the build fails."""
-    so_path = BUILD_DIR / f"libffs_kernels-{_digest()}.so"
+    its path.  Raises RuntimeError with nvcc's output when the build fails;
+    on success nvcc's output lands beside the library (:func:`build_log`)."""
+    so_path = _so_path()
     if so_path.exists():
         return so_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -87,9 +98,10 @@ def build() -> pathlib.Path:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
-        failures = []
+        failures, logs = [], []
         for cmd, proc in procs:
             out, _ = proc.communicate(timeout=900)
+            logs.append(f"$ {' '.join(cmd)}\n{out}")
             if proc.returncode != 0:
                 failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
         if failures:
@@ -104,6 +116,7 @@ def build() -> pathlib.Path:
             )
         # link to a private name and rename: concurrent processes never
         # load a half-written library
+        so_path.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp, so_path)
     return so_path
 
@@ -114,21 +127,25 @@ def lib() -> ctypes.CDLL:
     kernels = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     kernels.ffs_dispersion_packed.argtypes = [
-        p, i, p, p, p, i, i, i, i, f, i, f, f, i, p,
+        p, i, p, p, i, i, i, i, i, i, f, i, f, f, i, p,
     ]
     kernels.ffs_dispersion_packed.restype = i
     kernels.ffs_dispersion_extended_packed.argtypes = [
-        p, i, p, p, p, p, p, i, i, i, i, f, i, f, f, p,
+        p, i, p, p, i, i, i, i, i, i, f, i, f, f, p,
     ]
     kernels.ffs_dispersion_extended_packed.restype = i
     kernels.ffs_dispersion_fused.argtypes = [
-        p, i, p, p, p, p, p, i, i, i, i, f, i, f, f, i, p,
+        p, i, p, p, p, p, i, i, i, i, i, i, f, i, f, f, i, p,
     ]
     kernels.ffs_dispersion_fused.restype = i
     kernels.ffs_dispersion_extended_fused.argtypes = [
-        p, i, p, p, p, p, p, p, p, i, i, i, i, f, i, f, f, p,
+        p, i, p, p, p, p, i, i, i, i, i, i, f, i, f, f, p,
     ]
     kernels.ffs_dispersion_extended_fused.restype = i
+    kernels.ffs_dispersion_walker_blocks_per_sm.argtypes = [i, i, i]
+    kernels.ffs_dispersion_walker_blocks_per_sm.restype = i
+    kernels.ffs_extended_walker_blocks_per_sm.argtypes = [i, i]
+    kernels.ffs_extended_walker_blocks_per_sm.restype = i
     kernels.ffs_window_gather_planes.argtypes = [p, i, i, i, p, p, i, i, p, p]
     kernels.ffs_window_gather_planes.restype = i
     kernels.ffs_window_gather.argtypes = [p, i, i, p, p, i, i, p, p]

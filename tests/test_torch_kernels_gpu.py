@@ -336,3 +336,136 @@ def test_batch_on_gpu_matches_cpu(cuda, cc_backend):
             # exact: every float32 sum here is of integers below 2^24, so the
             # card's order of atomic adds cannot move a bit
             np.testing.assert_array_equal(a.centers_of_mass, b.centers_of_mass)
+
+
+# --- the row walker's edges: every case bit-equal to the plain version, for
+# all three pixel types and both algorithms, with and without the mask count
+
+
+def _walker_tiling(algorithm, frames):
+    """The tiling the wrapper launches for these (B, H, W) frames."""
+    extended = algorithm == "dispersion_extended"
+    return tp.launch_tiling(frames, txp.HALO if extended else 3, extended, True)
+
+
+def _assert_walker_matches(raw, plain, mbox_fn, img, msk):
+    want = plain(img, msk, 65535.0)
+    for mbox in (None, mbox_fn(msk)):
+        got = raw(img, msk, 65535.0, mbox=mbox)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (tuple(img.shape), mbox is not None)
+    return want
+
+
+@pytest.mark.parametrize("h", [1, 2, 5, 9, 10, 11])
+@pytest.mark.parametrize("pixels", [np.uint16, np.uint32, np.int32])
+@pytest.mark.parametrize("algorithm", list(KERNELS))
+def test_walker_frames_below_the_halo(cuda, algorithm, pixels, h):
+    """Frames fewer rows tall than the extended kernel's 10-row halo."""
+    raw, plain, mbox_fn = KERNELS[algorithm]
+    rng = np.random.default_rng(h)
+    image = rng.poisson(6.0, size=(h, 70)).astype(pixels)
+    image[:, 10::17] += pixels(900)
+    mask = np.ones((h, 70), np.uint8)
+    mask[:, 33] = 0
+    img, msk = torch.from_numpy(image).to(cuda), torch.from_numpy(mask).to(cuda)
+    _assert_walker_matches(raw, plain, mbox_fn, img, msk)
+
+
+@pytest.mark.parametrize("pixels", [np.uint16, np.uint32, np.int32])
+@pytest.mark.parametrize("algorithm", list(KERNELS))
+def test_walker_segment_remainders(cuda, algorithm, pixels):
+    """Heights one below, at and one above a multiple of the launch's
+    segment height: a last segment one row short, a whole one, and one of
+    a single row."""
+    raw, plain, mbox_fn = KERNELS[algorithm]
+    dtype = getattr(torch, np.dtype(pixels).name)
+    found = {}
+    for h in range(24, 700):
+        t = _walker_tiling(algorithm, torch.empty((1, h, 300), dtype=dtype, device=cuda))
+        last = h - (t.segs - 1) * t.seg_rows
+        kind = {t.seg_rows - 1: "short", t.seg_rows: "whole", 1: "one"}.get(last)
+        if t.segs > 1 and kind is not None:
+            found.setdefault(kind, h)
+        if len(found) == 3:
+            break
+    assert set(found) == {"short", "whole", "one"}, found
+    for h in found.values():
+        image, mask = _frame(h, 300, pixels, seed=h)
+        img, msk = torch.from_numpy(image).to(cuda), torch.from_numpy(mask).to(cuda)
+        _assert_walker_matches(raw, plain, mbox_fn, img, msk)
+
+
+@pytest.mark.parametrize("w", [1, 3, 31, 33, 40, 129, 333, 961, 1030])
+@pytest.mark.parametrize("pixels", [np.uint16, np.uint32, np.int32])
+@pytest.mark.parametrize("algorithm", list(KERNELS))
+def test_walker_ragged_widths(cuda, algorithm, pixels, w):
+    """Widths below one strip, across a strip and not multiples of 4 or 8;
+    mask bytes other than 0 and 1 count as valid."""
+    raw, plain, mbox_fn = KERNELS[algorithm]
+    rng = np.random.default_rng(w)
+    image = rng.poisson(6.0, size=(48, w)).astype(pixels)
+    image[20:23, ::7] += pixels(900)
+    mask = np.where(rng.random((48, w)) < 0.95, rng.integers(1, 256, (48, w)), 0).astype(np.uint8)
+    img, msk = torch.from_numpy(image).to(cuda), torch.from_numpy(mask).to(cuda)
+    _assert_walker_matches(raw, plain, mbox_fn, img, msk)
+
+
+def straddling_frame(h, w, dtype, tiling, seed=11):
+    """A seeded frame with 5x5 spots centred on every strip boundary column
+    and every segment boundary row of ``tiling`` (and their crossings), over
+    a Poisson background."""
+    rng = np.random.default_rng(seed)
+    image = rng.poisson(4.0, size=(h, w)).astype(np.int64)
+    cols = [s * tiling.wps * 32 for s in range(1, tiling.strips)] + [w // 2]
+    rows = [g * tiling.seg_rows for g in range(1, tiling.segs)] + [h // 2]
+    centres = [(y, x) for y in rows for x in range(7, w - 7, 37)]
+    centres += [(y, x) for x in cols for y in range(7, h - 7, 41)]
+    centres += [(y, x) for y in rows for x in cols]
+    for y, x in centres:
+        y0, x0 = max(y - 2, 0), max(x - 2, 0)
+        image[y0 : y + 3, x0 : x + 3] += rng.poisson(80, size=image[y0 : y + 3, x0 : x + 3].shape)
+    return image.astype(dtype)
+
+
+@pytest.mark.parametrize("pixels", [np.uint16, np.uint32, np.int32])
+@pytest.mark.parametrize("algorithm", list(KERNELS))
+def test_walker_spots_straddle_boundaries(cuda, algorithm, pixels):
+    """5x5 spots across every strip and segment boundary of the launch."""
+    raw, plain, mbox_fn = KERNELS[algorithm]
+    h, w = 700, 2100
+    probe = torch.empty((1, h, w), dtype=getattr(torch, np.dtype(pixels).name), device=cuda)
+    t = _walker_tiling(algorithm, probe)
+    assert t.strips > 1 and t.segs > 1
+    image = straddling_frame(h, w, pixels, t)
+    mask = np.ones((h, w), np.uint8)
+    mask[h // 3 : h // 3 + 6] = 0
+    img, msk = torch.from_numpy(image).to(cuda), torch.from_numpy(mask).to(cuda)
+    want = _assert_walker_matches(raw, plain, mbox_fn, img, msk)
+    nwl = want.shape[-1] // 2
+    assert int(want[:, nwl - 1].sum()) > 100
+
+
+def jungfrau_batch(b=112, seed=5):
+    """(frames, mask): b seeded 1066 x 1030 u16 frames with 60 3x3 spots
+    each over a Poisson(2) base and a 42-row module gap band, the JAX
+    bench's Jungfrau 1M batch."""
+    from ffs_tpu_torch.tools.measure_stages import make_batch
+
+    mask = np.ones((1066, 1030), np.uint8)
+    mask[533 : 533 + 42] = 0
+    return make_batch(b, mask, spots=60, seed=seed), mask
+
+
+def test_walker_jungfrau_batch(cuda):
+    """B = 112 Jungfrau 1M frames in one launch, both algorithms, with and
+    without the mask count, and the rowcum entries."""
+    frames, mask = jungfrau_batch()
+    img, msk = torch.from_numpy(frames).to(cuda), torch.from_numpy(mask).to(cuda)
+    for raw, plain, mbox_fn in KERNELS.values():
+        want = _assert_walker_matches(raw, plain, mbox_fn, img, msk)
+        assert int(want[..., want.shape[-1] // 2 - 1].sum()) > 0
+    for fused, plain in ((tp.dispersion_fused, tp.dispersion_fused_plain),
+                         (txp.dispersion_extended_fused, txp.dispersion_extended_fused_plain)):
+        for got, want in zip(fused(img, msk, 65535.0), plain(img, msk, 65535.0)):
+            assert torch.equal(got, want)
