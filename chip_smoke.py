@@ -99,11 +99,18 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SIDE = 4362, 4148  # Eiger 16M (H, W)
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 F32_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
-# float32 operations per pixel the threshold needs, at least: I^2 (1), the
-# 7x7 window sums of I and I^2 done separably (2 x 12 adds) and the
-# dispersion test (~15: products, compares, two square roots); extended adds
-# the 11x11 sums of I and of the count (2 x 20 adds) and the mean test (~6)
-DISPERSION_OPS_PER_PX = {"dispersion_packed": 40, "dispersion_extended_packed": 86}
+# float32 operations per pixel the threshold needs, at least.  Window counts
+# of the mask and of the background are integers, and so is every test on
+# them alone (m > 1, m >= min_count, n > 0, the root of 2(m-1)): integer
+# work, not counted.  The first pass: I^2 (1), the 7x7 sums of I and I^2
+# done separably (2 x 12 adds), the variance test m*y - x*x - x*(m-1) >
+# x*nsig_b*root (3 products, 2 subtractions, 2 products, a compare) and
+# I <= trusted_max (1): 34.  Dispersion adds the signal test m*I - x >
+# nsig_s*sqrt(x*m) (3 products, a subtraction, a root, a compare): 40.
+# Extended has no signal test; it adds the separable 11x11 sum of the
+# background's I (2 x 10 adds) and the mean test I > 0, I >= x/n +
+# nsig_s*sqrt(x/n) (a division, a root, a product, an add, 2 compares): 60.
+DISPERSION_OPS_PER_PX = {"dispersion_packed": 40, "dispersion_extended_packed": 60}
 
 # the integrator slice: an Eiger 16M at 200 mm, lambda 0.976 A, a thaumatin
 # cell, 0.1 degree images; 40 images of a 3600-image sweep, cut for time
@@ -1171,13 +1178,10 @@ def phase_rowcum(dev):
     # the rowcum and word compactions give the packed path's pixels
     img2 = torch.from_numpy(sample_data.generate_sample_image(2)).to(dev)
     msk = torch.from_numpy(mask_np).to(dev)
-    mbox = dp.mask_box_count(msk)
-    _, rowcum = dp.dispersion_fused(img2, msk, 65535.0, mbox=mbox, emit_strong=False)
+    _, rowcum = dp.dispersion_fused(img2, msk, 65535.0, emit_strong=False)
     from_rowcum = compact.compact_from_rowcum(img2, rowcum, max_pixels=32768)
-    from_words = compact.compact_from_words(img2, *dp.dispersion_packed(img2, msk, 65535.0,
-                                                                           mbox=mbox))
-    from_pcw = compact.compact_from_pcw(img2, dp.dispersion_packed_raw(img2, msk, 65535.0,
-                                                                       mbox=mbox))
+    from_words = compact.compact_from_words(img2, *dp.dispersion_packed(img2, msk, 65535.0))
+    from_pcw = compact.compact_from_pcw(img2, dp.dispersion_packed_raw(img2, msk, 65535.0))
     n = int(from_rowcum.count)
     if n != 9506 or not (tensors_equal(from_rowcum, from_pcw)
                          and tensors_equal(from_words, from_pcw)):
@@ -1187,19 +1191,18 @@ def phase_rowcum(dev):
     say("image 2: compact_from_rowcum and compact_from_words give compact_from_pcw's 9506 "
         "pixels, lists equal")
 
-    # times at the tool's call: the B = 8 batch, mbox, no strong plane
+    # times at the tool's call: the B = 8 batch, no strong plane
     batch = torch.from_numpy(tool_frames).to(dev)
     figures = {}
     for name, kernel, plain in (
         ("dispersion_fused",
-         lambda: dp.dispersion_fused(batch, msk, 65535.0, mbox=mbox, emit_strong=False),
+         lambda: dp.dispersion_fused(batch, msk, 65535.0, emit_strong=False),
          lambda: dp.dispersion_fused_plain(batch, msk, 65535.0, emit_strong=False)),
         ("dispersion_extended_fused",
          lambda: dxp.dispersion_extended_fused(batch, msk, 65535.0, emit_strong=False),
          lambda: dxp.dispersion_extended_fused_plain(batch, msk, 65535.0, emit_strong=False)),
     ):
-        # compulsory bytes: the frames and the mask read once, rowcum written
-        # once (the tool still passes mbox, which the walker does not read)
+        # compulsory bytes: the frames and the mask read once, rowcum written once
         nbytes = batch.numel() * 2 + msk.numel() + batch.numel() * 4
         ops_key = "dispersion_packed" if name == "dispersion_fused" else "dispersion_extended_packed"
         bound = bound_ms(nbytes, DISPERSION_OPS_PER_PX[ops_key] * batch.numel())

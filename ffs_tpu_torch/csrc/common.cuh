@@ -44,8 +44,11 @@ constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kCols = 4;             // columns a walker thread owns
 constexpr int kHaloThreads = 8;      // 32 halo columns each side of a strip
-constexpr int kMaxStripWords = 30;   // 16 + 8*30 = 256 threads at most
-constexpr int kMaxWalkerThreads = 2 * kHaloThreads + 8 * kMaxStripWords;
+// Threads of a walker block for strips of `wps` words: 8 a word and the
+// halo threads on both sides.
+constexpr int walker_threads(int wps) { return 2 * kHaloThreads + 8 * wps; }
+constexpr int kMaxStripWords = 30;
+constexpr int kMaxWalkerThreads = walker_threads(kMaxStripWords);  // 256
 constexpr int kPad = 2;              // shared rows: 2 zero slots each side
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -436,7 +439,7 @@ inline bool walker_grid(int B, int H, int W, int nwl, int wps, int seg_rows, dim
     return false;
   }
   grid = dim3((n_words(W) + wps - 1) / wps, (H + seg_rows - 1) / seg_rows, B);
-  block = dim3(2 * kHaloThreads + 8 * wps);
+  block = dim3(walker_threads(wps));
   return true;
 }
 

@@ -99,8 +99,14 @@ extended_walker(const T* __restrict__ img, const uint8_t* __restrict__ mask,
       sh.er[q][e] = sh.n2[q][e] = 0;
     }
   }
-  sh.first[0].init(t);
-  sh.first[1].init(t);
+  // the walk's first step finishes a first-pass row from sums no step has
+  // written: start them at zero (a mask count of 0 fails the test)
+  for (int q = 0; q < 2; ++q) {
+    sh.first[q].init(t);
+    sh.first[q].x[t + kPad] = sh.first[q].y[t + kPad] = make_float4(0.f, 0.f, 0.f, 0.f);
+    sh.first[q].m[t + kPad] = 0;
+  }
+  __syncthreads();
   Ring<kRing> ring;  // v[k] = row i-7+k
   ring.clear();
   uint32_t bg1h = 0;  // first-pass background nibbles, rows f-4 .. f (f = i-4)
@@ -204,8 +210,9 @@ cudaError_t extended(const void* img, int pixel_type, const uint8_t* mask, int32
   const float mc = static_cast<float>(min_count);
   auto launch = [&](auto pixel) {
     using T = decltype(pixel);
-    // the shared ring takes the block past 48 KB: opt in once per pixel type
-    static const cudaError_t opt_in = cudaFuncSetAttribute(
+    // the shared ring takes the block past 48 KB: opt in on the current
+    // device (the attribute is per device, and cheap to set every launch)
+    const cudaError_t opt_in = cudaFuncSetAttribute(
         extended_walker<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(ring_bytes(kMaxWalkerThreads)));
     if (opt_in != cudaSuccess) return opt_in;
@@ -258,10 +265,13 @@ extern "C" int ffs_dispersion_extended_fused(const void* img, int pixel_type, co
       static_cast<int32_t*>(rowcum), B, H, W, nwl, static_cast<cudaStream_t>(stream)));
 }
 
-// Resident extended walker blocks a multiprocessor holds at `threads`
-// threads a block, or -1 on error (see ffs_dispersion_walker_blocks_per_sm).
-extern "C" int ffs_extended_walker_blocks_per_sm(int pixel_type, int threads) {
+// Resident extended walker blocks a multiprocessor of the current device
+// holds for strips of `wps` words, or -1 on error (see
+// ffs_dispersion_walker_blocks_per_sm).
+extern "C" int ffs_extended_walker_blocks_per_sm(int pixel_type, int wps) {
   using namespace ffs_kernels;
+  if (wps < 1 || wps > kMaxStripWords) return -1;
+  const int threads = walker_threads(wps);
   int n = -1;
   auto query = [&](auto kernel) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

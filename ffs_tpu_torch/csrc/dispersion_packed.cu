@@ -151,14 +151,19 @@ extern "C" int ffs_dispersion_fused(const void* img, int pixel_type, const void*
       words, static_cast<uint8_t*>(strong), static_cast<int32_t*>(rowcum), B, H, W, nwl, s));
 }
 
-// Resident dispersion walker blocks a multiprocessor holds at `threads`
-// threads a block (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on
-// error; the wrapper's tiling fills the card with that many a SM.
-extern "C" int ffs_dispersion_walker_blocks_per_sm(int pixel_type, int signal_test, int threads) {
+// The widest strip a walker block takes, in 32-column words: the wrapper
+// splits a frame's words into strips of at most this many.
+extern "C" int ffs_walker_max_strip_words() { return ffs_kernels::kMaxStripWords; }
+
+// Resident dispersion walker blocks a multiprocessor of the current device
+// holds for strips of `wps` words (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or -1 on error; the wrapper's tiling fills the card with that many a SM.
+extern "C" int ffs_dispersion_walker_blocks_per_sm(int pixel_type, int signal_test, int wps) {
   using namespace ffs_kernels;
+  if (wps < 1 || wps > kMaxStripWords) return -1;
   int n = -1;
   auto query = [&](auto kernel) {
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, walker_threads(wps), 0);
   };
   cudaError_t err;
   const bool sig = signal_test != 0;

@@ -89,10 +89,10 @@ def pack_pcw(strong: torch.Tensor, nwl: int) -> torch.Tensor:
 # pixel_type codes of the C entry points (csrc/common.cuh PixelType)
 PIXEL_TYPES = {torch.uint16: 0, torch.uint32: 1, torch.int32: 2}
 
-# The row walker of csrc/common.cuh: a block owns a strip of at most 30
-# words (16 + 8*30 = 256 threads) and a segment of rows, which it walks down
-# after a warm-up of twice the kernel's halo rows.
-WALKER_MAX_WORDS = 30
+# The row walker of csrc/common.cuh: a block owns a strip of words and a
+# segment of rows, which it walks down after a warm-up of twice the kernel's
+# halo rows.  The library sets the widest strip
+# (ffs_walker_max_strip_words) and the threads a block.
 
 
 class WalkerTiling(NamedTuple):
@@ -102,29 +102,25 @@ class WalkerTiling(NamedTuple):
     segs: int
 
 
-def strip_words(w: int) -> tuple[int, int]:
-    """(words a strip, strips): equal strips covering the ceil(w/32) words."""
+def strip_words(w: int, max_words: int) -> tuple[int, int]:
+    """(words a strip, strips): equal strips of at most ``max_words``
+    covering the ceil(w/32) words."""
     words = -(-w // 32)
-    strips = -(-words // WALKER_MAX_WORDS)
+    strips = -(-words // max_words)
     return -(-words // strips), strips
 
 
-def walker_threads(wps: int) -> int:
-    """Threads of a walker block: 8 a word plus 8 halo threads each side."""
-    return 16 + 8 * wps
-
-
 @functools.lru_cache(maxsize=256)
-def walker_tiling(b: int, h: int, w: int, halo: int, slots: int) -> WalkerTiling:
+def walker_tiling(b: int, h: int, w: int, halo: int, slots: int, max_words: int) -> WalkerTiling:
     """The walker kernels' grid for ``b`` frames of ``h`` x ``w`` with a
-    ``halo``-row warm-up above and below each segment, on a card that holds
-    ``slots`` blocks at once.  The segment count minimises the modelled
-    time, waves x (rows a segment + 2 halo), so that the grid fills whole
-    waves without paying too much warm-up; a segment is at least 2 halo
-    rows tall unless it is the whole frame.  Block (s, g, f) writes words
-    [s*wps, min((s+1)*wps, ceil(w/32))) of rows [g*seg_rows,
-    min((g+1)*seg_rows, h)) of frame f."""
-    wps, strips = strip_words(w)
+    ``halo``-row warm-up above and below each segment, strips of at most
+    ``max_words`` words, on a card that holds ``slots`` blocks at once.  The
+    segment count minimises the modelled time, waves x (rows a segment + 2
+    halo), so that the grid fills whole waves without paying too much
+    warm-up; a segment is at least 2 halo rows tall unless it is the whole
+    frame.  Block (s, g, f) writes words [s*wps, min((s+1)*wps, ceil(w/32)))
+    of rows [g*seg_rows, min((g+1)*seg_rows, h)) of frame f."""
+    wps, strips = strip_words(w, max_words)
     best = None
     for segs in range(1, h + 1):
         seg_rows = -(-h // segs)
@@ -139,31 +135,35 @@ def walker_tiling(b: int, h: int, w: int, halo: int, slots: int) -> WalkerTiling
 
 
 @functools.lru_cache(maxsize=64)
-def walker_slots(extended: bool, pixel_type: int, signal_test: bool, w: int,
+def walker_slots(extended: bool, pixel_type: int, signal_test: bool, wps: int,
                  device_index: int) -> int:
-    """Walker blocks the card holds at once for frames ``w`` wide: the
-    kernel's resident blocks a multiprocessor (CUDA's occupancy query)
-    times the multiprocessors."""
+    """Walker blocks the card ``device_index`` holds at once for strips of
+    ``wps`` words: the kernel's resident blocks a multiprocessor (CUDA's
+    occupancy query, on that card) times its multiprocessors."""
     from ..utils import cuda_build
 
-    threads = walker_threads(strip_words(w)[0])
     lib = cuda_build.lib()
-    if extended:
-        per_sm = lib.ffs_extended_walker_blocks_per_sm(pixel_type, threads)
-    else:
-        per_sm = lib.ffs_dispersion_walker_blocks_per_sm(pixel_type, int(signal_test), threads)
+    with torch.cuda.device(device_index):
+        if extended:
+            per_sm = lib.ffs_extended_walker_blocks_per_sm(pixel_type, wps)
+        else:
+            per_sm = lib.ffs_dispersion_walker_blocks_per_sm(pixel_type, int(signal_test), wps)
     if per_sm < 1:
-        raise RuntimeError(f"walker occupancy query failed ({per_sm}) for {threads} threads")
+        raise RuntimeError(f"walker occupancy query failed ({per_sm}) for {wps}-word strips")
     return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def launch_tiling(frames: torch.Tensor, halo: int, extended: bool,
                   signal_test: bool) -> WalkerTiling:
     """The tiling a walker launch uses for these (B, H, W) CUDA frames."""
+    from ..utils import cuda_build
+
     b, h, w = frames.shape
     dev = frames.device.index if frames.device.index is not None else torch.cuda.current_device()
-    slots = walker_slots(extended, PIXEL_TYPES[frames.dtype], signal_test, w, dev)
-    return walker_tiling(b, h, w, halo, slots)
+    max_words = cuda_build.lib().ffs_walker_max_strip_words()
+    wps = strip_words(w, max_words)[0]
+    slots = walker_slots(extended, PIXEL_TYPES[frames.dtype], signal_test, wps, dev)
+    return walker_tiling(b, h, w, halo, slots, max_words)
 
 
 def _check_inputs(image, mask, mbox):

@@ -7,13 +7,13 @@ Counterpart of the JAX package's ``tools/measure_stages.py``.  It builds
 the same synthetic Eiger 16M batch (seed 12: a Poisson(2) base, 300 3x3
 spots of Poisson(60) per frame, the sample module mask, ``B`` frames), then
 times nested prefixes of the pipeline over ``REPS`` launches: the rowcum
-threshold (``dispersion_fused``, the frame-invariant ``mbox``, no strong
-plane); + per-frame compaction; + connected components; + spot table and
-filters; the flat-batch compaction; the flat-batch pipeline.  ``PACKED=1``
-runs the packed-words rows instead (``dispersion_packed`` +
-``compact_from_words_flat``).  One row the JAX tool lacks times the
-extended threshold's rowcum entry.  Differences between successive rows
-are per-stage costs.
+threshold (``dispersion_fused``, no strong plane); + per-frame compaction;
++ connected components; + spot table and filters; the flat-batch
+compaction; the flat-batch pipeline.  ``PACKED=1`` runs the packed-words
+rows instead (``dispersion_packed`` + ``compact_from_words_flat``).  One
+row the JAX tool lacks times the extended threshold's rowcum entry.  Unlike
+the JAX tool it builds no mask box count: the kernels count the window from
+the mask.  Differences between successive rows are per-stage costs.
 
 Every row's input depends on the loop counter (``b + (i & 1)``) and every
 output is consumed into the row's checksum.  On a CUDA device the times
@@ -49,7 +49,6 @@ from ..ops.dispersion_packed import (
     dispersion_fused_plain,
     dispersion_packed,
     dispersion_packed_plain,
-    mask_box_count,
 )
 from ..utils import torchinit
 
@@ -81,12 +80,11 @@ def make_batch(batch: int, mask: np.ndarray, *, spots: int = 300, seed: int = 12
 
 @dataclasses.dataclass
 class StageContext:
-    """What the stages share: the mask and its box count on the device, the
-    capacities, and ``plain`` (the thresholds' plain PyTorch versions in
-    place of their kernels, for a reference run on the same device)."""
+    """What the stages share: the mask on the device, the capacities, and
+    ``plain`` (the thresholds' plain PyTorch versions in place of their
+    kernels, for a reference run on the same device)."""
 
     mask: torch.Tensor
-    mbox: torch.Tensor
     max_px: int = MAX_PX
     max_spots: int = MAX_SPOTS
     flat_px: int = FLAT_PX
@@ -97,7 +95,7 @@ class StageContext:
     def build(cls, mask: np.ndarray, device: torch.device | None = None, **kw) -> StageContext:
         dev = torchinit.select_device() if device is None else device
         m = torch.from_numpy(np.ascontiguousarray(mask, np.uint8)).to(dev)
-        return cls(mask=m, mbox=mask_box_count(m), **kw)
+        return cls(mask=m, **kw)
 
     @property
     def width(self) -> int:
@@ -117,7 +115,7 @@ def vary(i: int, b: torch.Tensor) -> torch.Tensor:
 def _rowcum(ctx: StageContext, bb: torch.Tensor) -> torch.Tensor:
     if ctx.plain:
         return dispersion_fused_plain(bb, ctx.mask, TM, emit_strong=False)[1]
-    return dispersion_fused(bb, ctx.mask, TM, mbox=ctx.mbox, emit_strong=False)[1]
+    return dispersion_fused(bb, ctx.mask, TM, emit_strong=False)[1]
 
 
 def _words(ctx: StageContext, bb: torch.Tensor):
@@ -125,7 +123,7 @@ def _words(ctx: StageContext, bb: torch.Tensor):
         pcw = dispersion_packed_plain(bb, ctx.mask, TM)
         nwl = pcw.shape[-1] // 2
         return pcw[..., nwl:], pcw[..., :nwl]
-    return dispersion_packed(bb, ctx.mask, TM, mbox=ctx.mbox)
+    return dispersion_packed(bb, ctx.mask, TM)
 
 
 def _f32(x) -> torch.Tensor:

@@ -142,6 +142,8 @@ def lib() -> ctypes.CDLL:
         p, i, p, p, p, p, i, i, i, i, i, i, f, i, f, f, p,
     ]
     kernels.ffs_dispersion_extended_fused.restype = i
+    kernels.ffs_walker_max_strip_words.argtypes = []
+    kernels.ffs_walker_max_strip_words.restype = i
     kernels.ffs_dispersion_walker_blocks_per_sm.argtypes = [i, i, i]
     kernels.ffs_dispersion_walker_blocks_per_sm.restype = i
     kernels.ffs_extended_walker_blocks_per_sm.argtypes = [i, i]

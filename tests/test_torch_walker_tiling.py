@@ -8,6 +8,10 @@ import pytest
 
 from ffs_tpu_torch.ops import dispersion_packed as tp
 
+# the widest strip the library takes (csrc/common.cuh kMaxStripWords, read
+# on the card through ffs_walker_max_strip_words)
+MAX_WORDS = 30
+
 SHAPES = [
     (1, 4362, 4148),  # Eiger 16M, per frame
     (8, 4362, 4148),  # the stage tool's and the batched CLI's B = 8
@@ -26,10 +30,9 @@ SHAPES = [
 @pytest.mark.parametrize("shape", SHAPES)
 def test_every_row_and_word_written_once(shape, halo, slots):
     b, h, w = shape
-    t = tp.walker_tiling(b, h, w, halo, slots)
+    t = tp.walker_tiling(b, h, w, halo, slots, MAX_WORDS)
     words = -(-w // 32)
-    assert 1 <= t.wps <= tp.WALKER_MAX_WORDS
-    assert tp.walker_threads(t.wps) <= 256 and tp.walker_threads(t.wps) % 8 == 0
+    assert 1 <= t.wps <= MAX_WORDS
     # the C side's grid from (wps, seg_rows): csrc/common.cuh walker_grid
     assert t.strips == -(-words // t.wps) and t.segs == -(-h // t.seg_rows)
     assert t.segs == 1 or t.seg_rows >= 2 * halo
@@ -46,6 +49,6 @@ def test_every_row_and_word_written_once(shape, halo, slots):
 
 def test_tiling_fills_the_card_at_eiger_16m():
     """One Eiger 16M frame on 264 slots: one wave, no block left over."""
-    t = tp.walker_tiling(1, 4362, 4148, 3, 264)
+    t = tp.walker_tiling(1, 4362, 4148, 3, 264, MAX_WORDS)
     assert t.strips * t.segs <= 264
     assert t.strips * t.segs > 264 // 2
