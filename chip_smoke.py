@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the spotfinder and
-the integrator.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the spotfinder, the
+integrator and the indexers.
 
     python3 chip_smoke.py
 
@@ -72,7 +72,24 @@ import).  Phases, each of which fails the run:
    edges; times beside the bound, the plain version and one
    advanced-indexing call; then the gather tool's main
    (``ffs_tpu_torch.tools.measure_window_gather``) with its bitwise
-   assertions and the three launch counters rising.
+   assertions and the three launch counters rising;
+13. SSX indexing — ``tools/bench_ssx.py``'s 64 stills (the port's copy of
+   the adversarial suite's generators, ten noise spots each, a
+   32768-direction search) through ``SSXIndexer.index`` one image a call
+   (the PIA's shape) and ``index_batch`` at B = 64 (the bench's): images/s
+   against the bar of 100, the stage split, CUDA-event times of the score +
+   top-k and the refinement, the device's busy share over one batch; the
+   same images through the float64 host search must index the same images
+   with cells within 1e-4;
+14. rotation indexing — a seeded sweep of ``tests/test_indexer_cli.py``'s
+   crystal at Eiger 16M geometry (>= 20,000 strong reflections) through the
+   indexer's core (``index_experiment``): the cell within 1% of the truth;
+   the 256^3 complex128 FFT on the card against NumPy's (1e-12 of the
+   peak), with both times and the whole index's;
+15. the PIA hook — the ``spotfinder`` CLI's ``--output-for-index`` pipe
+   lines on the six sample frames through ``index_pipe_payload`` with an
+   armed indexer: every line comes back with ``lattices`` and
+   ``n_unindexed``, the indexed and unindexed counts adding up to its spots.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -292,14 +309,23 @@ def run_cli(args: list[str]):
     """The port's CLI in-process; returns (rc, log, pipe JSON lines, seconds)."""
     from ffs_tpu_torch.pipeline import spotfinder
 
+    import threading
+
     r, w = os.pipe()
     buf = io.StringIO()
+    lines: list = []
+
+    def read():  # drains the pipe while run() writes (a line can outgrow its buffer)
+        with os.fdopen(r) as f:  # ends when run() closes the write end
+            lines.extend(json.loads(line) for line in f if line.strip())
+
+    reader = threading.Thread(target=read)
+    reader.start()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = spotfinder.run(args + ["--pipe_fd", str(w)])
     seconds = time.perf_counter() - t0
-    with os.fdopen(r) as f:  # run() closed the write end
-        lines = [json.loads(line) for line in f if line.strip()]
+    reader.join()
     return rc, buf.getvalue(), lines, seconds
 
 
@@ -1360,6 +1386,261 @@ def phase_gather_variants(dev, integ, frames_host):
     return figures, launches
 
 
+# the indexing slice: phase 13 runs tools/bench_ssx.py's configuration (64
+# stills of the adversarial suite's 30 x 40 x 50 A cell, ~50-300 spots with
+# ten noise spots each, a 32768-direction search) against its bar of 100
+# indexed images/s (tools/bench_ssx.py:10-14)
+SSX_IMAGES = 64
+SSX_BAR = 100.0
+SSX_CELL_RTOL = 1e-4  # device (float32) against the float64 search, tests/test_torch_ssx.py
+# phase 14: the rotation recipe of tests/test_indexer_cli.py (a 60 x 70 x 80 A
+# orthorhombic crystal, lambda 1 A) at Eiger 16M geometry: 4148 x 4362 px of
+# 75 um at 200 mm, 450 images of 0.1 degree
+ROT_CELL = (60.0, 70.0, 80.0)
+ROT_MIN_REFLECTIONS = 20000
+# phase 15: the PIA's still indexer armed as a request at the sample
+# geometry arms it; mu(Si, 0.97625 A) is the dx2 anchor the service's
+# detector table reproduces (ffs_tpu_torch/service/detectors.py docstring)
+PIA_WAVELENGTH, PIA_MU_SI = 0.97625, 3.92199
+PIA_CELL = (78.9, 78.9, 38.1, 90.0, 90.0, 90.0)
+
+
+def ssx_images():
+    """tools/bench_ssx.py's stills, from the port's copy of the generators."""
+    from ffs_tpu_torch.tools import ssx_adversarial as adv
+
+    images = []
+    for seed in range(SSX_IMAGES):
+        crystal, panel, wavelength, s0, rng = adv.make_experiment(seed + 1)
+        obs = adv.lattice_spots(crystal, panel, s0, rng)
+        images.append(np.concatenate([obs, adv.noise_spots(rng, 10)]))
+    return images, panel, wavelength
+
+
+def ssx_success(results) -> list[bool]:
+    """An image is indexed when a lattice of the known cell (3%) came back."""
+    from ffs_tpu_torch.tools.ssx_adversarial import CELL
+
+    return [r is not None and all(abs(g - w) / w < 0.03 for g, w in
+                                  zip(sorted(r.cell_parameters[:3]), sorted(CELL[:3])))
+            for r, _ in results]
+
+
+def phase_ssx(dev, card: str) -> None:
+    """Phase 13: SSX indexing at the service's size, per image (as the PIA
+    calls it) and at B = 64 (as the bench tool does), held to the float64
+    search on the same stills."""
+    import torch
+
+    from ffs_tpu_torch.indexing import ssx
+    from ffs_tpu_torch.indexing.rlp import ssx_xyz_to_rlp
+    from ffs_tpu_torch.tools.ssx_adversarial import CELL
+
+    images, panel, wavelength = ssx_images()
+    spots = [len(x) for x in images]
+
+    def armed(**kw):
+        ix = ssx.SSXIndexer(**kw)
+        ix.panel, ix.cell, ix.wavelength = panel, CELL, wavelength
+        return ix
+
+    ix = armed(device=dev)
+    ix.index_batch(images)  # warm: library handles, the direction table
+    ix.index(images[0])
+    t0 = time.perf_counter()
+    per_image = [ix.index(x) for x in images]
+    t_image = time.perf_counter() - t0
+    t_batch = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch = ix.index_batch(images)
+        t_batch.append(time.perf_counter() - t0)
+    t_batch = sorted(t_batch)[1]
+    ok_image, ok_batch = ssx_success(per_image), ssx_success(batch)
+    for (ri, ni), (rb, nb) in zip(per_image, batch):
+        if ni != nb or (ri is None) != (rb is None):
+            fail("ssx: index() and index_batch() disagree on an image")
+    say(f"ssx: {SSX_IMAGES} stills, {min(spots)}-{max(spots)} spots, 32768 directions; "
+        f"indexed {sum(ok_image)}/{SSX_IMAGES}")
+    say(f"ssx per image (PIA): {SSX_IMAGES / t_image:.1f} images/s "
+        f"({1e3 * t_image / SSX_IMAGES:.2f} ms an image; bar {SSX_BAR:.0f} indexed images/s) on {card}")
+    say(f"ssx B = {SSX_IMAGES} (bench): {SSX_IMAGES / t_batch:.1f} images/s "
+        f"(median of 3 batches, {1e3 * t_batch:.1f} ms a batch; bar {SSX_BAR:.0f}) on {card}")
+
+    stages: dict = {}
+    ix.index_batch(images, timings=stages)
+    total = sum(stages.values())
+    say(f"ssx B = {SSX_IMAGES} stage split (host clock, device synchronised) on {card}: " + ", ".join(
+        f"{k} {1e3 * v:.1f} ms ({100 * v / total:.0f}%)" for k, v in stages.items()))
+    rlps = [ssx_xyz_to_rlp(x, panel, wavelength) for x in images]
+    lengths = torch.tensor(CELL[:3], dtype=torch.float32, device=dev)
+    dirs = ssx.device_dirs(32768, dev)
+    for label, sel in ((f"B = {SSX_IMAGES}", rlps), ("B = 1", rlps[:1])):
+        rlp_pad, w, n_real = ssx._pad_rlp_batch(sel)
+        rlp_t, w_t = torch.from_numpy(rlp_pad).to(dev), torch.from_numpy(w).to(dev)
+        v0 = torch.zeros((len(sel), 3, 32, 3), dtype=torch.float32, device=dev)
+        v0[:, :, :, 2] = lengths[None, :, None]
+        n_t = torch.from_numpy(n_real).to(dev)
+        score_ms = cuda_ms(lambda: ssx.ssx_topk(rlp_t, w_t, lengths, dirs), reps=5)
+        refine_ms = cuda_ms(lambda: ssx.ssx_refine(rlp_t, w_t, n_t, v0), reps=5)
+        say(f"ssx {label} device stages (CUDA events, S = {rlp_pad.shape[1]}): score + top-k "
+            f"{score_ms:.3f} ms, refine (40 steps) {refine_ms:.3f} ms on {card}")
+    profile_device(f"ssx index_batch B = {SSX_IMAGES} on {card}", lambda: ix.index_batch(images))
+
+    t0 = time.perf_counter()
+    host = armed(use_device=False).index_batch(images)
+    t_host = time.perf_counter() - t0
+    ok_host = ssx_success(host)
+    say(f"ssx float64 host search: indexed {sum(ok_host)}/{SSX_IMAGES} in {t_host:.1f} s "
+        f"on the host of {card}")
+    if sum(ok_host) != sum(ok_batch) or sum(ok_batch) != sum(ok_image):
+        fail(f"ssx: success {sum(ok_batch)} (B = 64) / {sum(ok_image)} (per image) against "
+             f"{sum(ok_host)} for the float64 search")
+    worst = 0.0
+    for (rd, _), (rh, _) in zip(batch, host):
+        if (rd is None) != (rh is None):
+            fail("ssx: the device and float64 searches disagree on which images index")
+        if rd is not None:
+            worst = max(worst, float(np.max(np.abs(np.subtract(rd.cell_parameters, rh.cell_parameters))
+                                            / np.abs(rh.cell_parameters))))
+    if worst > SSX_CELL_RTOL:
+        fail(f"ssx: cells differ from the float64 search by {worst:.2e} relative")
+    say(f"ssx: cells within {worst:.2e} relative of the float64 search (limit {SSX_CELL_RTOL})")
+    if sum(ok_batch) < SSX_IMAGES // 2:
+        fail(f"ssx: only {sum(ok_batch)}/{SSX_IMAGES} stills indexed")
+
+
+def rotation_experiment(seed: int = 17, n_hkl: int = 250_000, phi_deg: float = 45.0,
+                        osc: float = 0.1):
+    """A seeded rotation sweep in tests/test_indexer_cli.py's recipe at
+    Eiger 16M geometry: (experiment, true crystal, xyzobs.px.value)."""
+    from ffs_tpu_torch.indexing.predict import predict_scan_static
+    from ffs_tpu_torch.models.crystal import Crystal
+    from ffs_tpu_torch.models.experiment import Experiment
+    from ffs_tpu_torch.models.geometry import Goniometer, MonochromaticBeam, Scan, simple_panel
+
+    rng = np.random.default_rng(seed)
+    c, s = np.cos(0.3), np.sin(0.3)
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    crystal = Crystal(*(rot @ (length * np.eye(3)[k]) for k, length in enumerate(ROT_CELL)))
+    beam, gonio = MonochromaticBeam(wavelength=1.0), Goniometer()
+    scan = Scan(image_range=(1, int(round(phi_deg / osc))), oscillation=(0.0, osc))
+    h, w = SIDE
+    px = 0.075
+    panel = simple_panel(distance_mm=200.0, beam_center_px=(w / 2, h / 2),
+                         pixel_size_mm=(px, px), image_size=(w, h))
+    hkl = rng.integers(-40, 41, size=(n_hkl, 3))
+    hkl = np.unique(hkl[~(hkl == 0).all(axis=1)], axis=0)
+    phi_seed = rng.uniform(0.0, np.deg2rad(phi_deg), size=len(hkl))
+    kw = dict(s0=beam.s0, fixed_rotation=gonio.fixed_rotation,
+              setting_rotation=gonio.setting_rotation, rotation_axis=gonio.rotation_axis,
+              ub=crystal.a_matrix,
+              d_matrix=np.stack([panel.fast_axis, panel.slow_axis, panel.origin], axis=1))
+    pred = predict_scan_static(hkl, np.zeros(len(hkl), bool), phi_seed, **kw)
+    s0_m2 = np.cross(beam.s0, gonio.setting_rotation @ gonio.rotation_axis)
+    entering = (pred["s1"] @ (s0_m2 / np.linalg.norm(s0_m2))) < 0
+    pred = predict_scan_static(hkl, entering, phi_seed, **kw)
+    xyz = pred["xyzcal_mm"]
+    phi = np.degrees(xyz[:, 2])
+    ok = (pred["valid"] & (xyz[:, 0] > 1) & (xyz[:, 0] < w * px - 1) & (xyz[:, 1] > 1)
+          & (xyz[:, 1] < h * px - 1) & (phi >= 0.0) & (phi < phi_deg))
+    xyz = xyz[ok]
+    xyzobs_px = np.stack([xyz[:, 0] / px, xyz[:, 1] / px,
+                          np.degrees(xyz[:, 2]) / osc - 1 + scan.image_range[0]], axis=1)
+    xyzobs_px += rng.normal(0.0, 0.1, xyzobs_px.shape)
+    return Experiment(beam, panel, gonio, scan), crystal, xyzobs_px
+
+
+def phase_rotation(dev, card: str) -> None:
+    """Phase 14: the rotation indexer's core on a seeded Eiger 16M sweep; the
+    256^3 complex128 FFT on the card against NumPy's."""
+    import torch
+
+    from ffs_tpu_torch.indexing import fft3d
+    from ffs_tpu_torch.indexing.rlp import xyz_to_rlp
+    from ffs_tpu_torch.pipeline.indexer import IndexOptions, index_experiment, indexed_reflections
+
+    expt, truth, xyzobs_px = rotation_experiment()
+    n = len(xyzobs_px)
+    if n < ROT_MIN_REFLECTIONS:
+        fail(f"rotation: only {n} strong reflections (need {ROT_MIN_REFLECTIONS})")
+    options = IndexOptions(max_cell=100.0)
+
+    rlp = xyz_to_rlp(xyzobs_px, expt.panel, expt.beam, expt.scan, expt.goniometer)["rlp"]
+    d_min = max(5.0 * options.max_cell / 256, float((1.0 / np.linalg.norm(rlp, axis=1)).min()))
+    grid, _ = fft3d.map_centroids_to_grid(rlp, d_min, fft3d.b_iso_from_d_min(d_min), 256)
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = torch.from_numpy(grid).to(dev)
+    fft_ms = cuda_ms(lambda: fft3d.fft_power(g), reps=5)
+    got = fft3d.fft_power(g).cpu().numpy()
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
+    t0 = time.perf_counter()
+    want = np.square(np.real(np.fft.fftn(grid)))
+    np_ms = 1e3 * (time.perf_counter() - t0)
+    err = float(np.max(np.abs(got - want)) / want.max())
+    if not np.allclose(got, want, rtol=1e-12, atol=1e-12 * want.max()):
+        fail(f"rotation: the card's FFT differs from NumPy's ({err:.2e} of the peak)")
+    say(f"fft3d n = 256 complex128: {fft_ms:.2f} ms on {card} (peak {peak_mb:.0f} MB) against "
+        f"NumPy's {np_ms:.0f} ms on the host; max |difference| {err:.1e} of the peak")
+    del g
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        outcome = index_experiment(expt, xyzobs_px, options, device=dev)
+        t_index = time.perf_counter() - t0
+        cols = indexed_reflections(outcome.expt, xyzobs_px) if outcome else None
+    if outcome is None:
+        fail("rotation: the indexer found no crystal:\n" + buf.getvalue()[-2000:])
+    cell = np.asarray(outcome.expt.crystal.unit_cell)
+    rel = np.abs(np.sort(cell[:3]) - np.sort(ROT_CELL)) / np.sort(ROT_CELL)
+    if rel.max() > 0.01 or np.abs(cell[3:] - 90.0).max() > 1.0:
+        fail(f"rotation: recovered cell {cell.round(3).tolist()}, truth {ROT_CELL}")
+    if cols["n_indexed"] < 0.8 * n:
+        fail(f"rotation: indexed {cols['n_indexed']}/{n}")
+    say(f"rotation: {n} strong reflections, {len(outcome.vectors)} candidate vectors, "
+        f"{len(outcome.candidates)} scored crystals; cell "
+        + " ".join(f"{v:.3f}" for v in cell) + f" (within {rel.max():.1e} of the truth); "
+        f"indexed {cols['n_indexed']}/{n}")
+    say(f"rotation index (FFT on the card, scoring and refinement on the host): "
+        f"{t_index:.2f} s on {card}")
+
+
+def phase_pia_hook(dev, card: str) -> None:
+    """Phase 15: the spotfinder's pipe lines (``--output-for-index``) through
+    the PIA's per-line indexing step with an armed indexer."""
+    from ffs_tpu_torch.indexing.ssx import SSXIndexer
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.models.geometry import simple_panel
+    from ffs_tpu_torch.service.pipe_index import index_pipe_payload
+
+    rc, log, lines, _ = run_cli(["--sample", "--output-for-index", "--min-spot-size", "1",
+                                 "--wavelength", str(PIA_WAVELENGTH)])
+    if rc != 0 or len(lines) != sample_data.NUM_SAMPLE_IMAGES:
+        fail(f"pia hook: spotfinder rc={rc}, {len(lines)} pipe lines\n{log[-2000:]}")
+    h, w = SIDE
+    indexer = SSXIndexer(device=dev)
+    indexer.cell = PIA_CELL
+    indexer.panel = simple_panel(distance_mm=500.0, beam_center_px=(w / 2, h / 2),
+                                 pixel_size_mm=(0.075, 0.075), image_size=(w, h),
+                                 mu=PIA_MU_SI, thickness=0.45, parallax=True, material="Si")
+    indexer.wavelength = PIA_WAVELENGTH
+    for line in lines:
+        n_spots = len(line.get("spot_centers", ())) // 3
+        t0 = time.perf_counter()
+        data = index_pipe_payload(indexer, dict(line))
+        dt = time.perf_counter() - t0
+        if "spot_centers" in data or "lattices" not in data or "n_unindexed" not in data:
+            fail(f"pia hook: line {line['file-number']} came back with keys {sorted(data)}")
+        n_idx = sum(lat["n_indexed"] for lat in data["lattices"])
+        if n_idx + data["n_unindexed"] != n_spots:
+            fail(f"pia hook: line {line['file-number']}: {n_idx} indexed + "
+                 f"{data['n_unindexed']} unindexed != {n_spots} spots")
+        say(f"pia hook image {line['file-number']}: {n_spots} spots, "
+            f"{len(data['lattices'])} lattice(s), {data['n_unindexed']} unindexed, "
+            f"{1e3 * dt:.1f} ms on {card}")
+
+
 def main() -> int:
     # the smoke proves the port runs on its own: any import of JAX, of the
     # JAX package or of its benchmark fails
@@ -1451,6 +1732,15 @@ def main() -> int:
     variants, launches_gv = phase_gather_variants(dev, integ_run.integrator, col.frames)
     launches.update(launches_gv)
     say(f"gather variant times above on {card}")
+
+    # phase 13: SSX indexing at the service's size
+    phase_ssx(dev, card)
+
+    # phase 14: rotation indexing at Eiger 16M
+    phase_rotation(dev, card)
+
+    # phase 15: the PIA's per-line indexing step on the spotfinder's pipe lines
+    phase_pia_hook(dev, card)
 
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",

@@ -154,10 +154,11 @@ def frames_from_planes(planes: torch.Tensor, height: int, width: int,
     out = torch.empty((b, height, width), dtype=dtype, device=planes.device)
     if b == 0:
         return out
-    rc = cuda_build.lib().ffs_bitshuffle_frames(
-        planes.data_ptr(), b, n_blocks, block_bytes // elem_size, elem_size,
-        height * width, out.data_ptr(), torch.cuda.current_stream(planes.device).cuda_stream,
-    )
+    with torch.cuda.device(planes.device):
+        rc = cuda_build.lib().ffs_bitshuffle_frames(
+            planes.data_ptr(), b, n_blocks, block_bytes // elem_size, elem_size,
+            height * width, out.data_ptr(), torch.cuda.current_stream(planes.device).cuda_stream,
+        )
     frames_from_planes.launches += 1
     cuda_build.check(rc, "bitshuffle_frames kernel")
     return out

@@ -119,11 +119,12 @@ def dispersion_extended_packed_raw(
     nwl = nwl_for_width(w, HALO)
     tiling = launch_tiling(frames, HALO, True, False)
     out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=image.device)
-    rc = cuda_build.lib().ffs_dispersion_extended_packed(
-        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(), out.data_ptr(),
-        b, h, w, nwl, tiling.wps, tiling.seg_rows, float(trusted_max), int(min_count),
-        float(nsig_b), float(nsig_s), _stream(image.device),
-    )
+    with torch.cuda.device(image.device):
+        rc = cuda_build.lib().ffs_dispersion_extended_packed(
+            frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(), out.data_ptr(),
+            b, h, w, nwl, tiling.wps, tiling.seg_rows, float(trusted_max), int(min_count),
+            float(nsig_b), float(nsig_s), _stream(image.device),
+        )
     dispersion_extended_packed_raw.launches += 1
     cuda_build.check(rc, "dispersion_extended_packed kernel")
     return out if image.dim() == 3 else out[0]
@@ -182,11 +183,12 @@ def dispersion_extended_fused(
     pcw = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=dev)
     strong = torch.empty((b, h, w), dtype=torch.uint8, device=dev) if emit_strong else None
     rowcum = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    rc = cuda_build.lib().ffs_dispersion_extended_fused(
-        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(), pcw.data_ptr(),
-        _ptr(strong), rowcum.data_ptr(), b, h, w, nwl, tiling.wps, tiling.seg_rows,
-        float(trusted_max), int(min_count), float(nsig_b), float(nsig_s), _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = cuda_build.lib().ffs_dispersion_extended_fused(
+            frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(), pcw.data_ptr(),
+            _ptr(strong), rowcum.data_ptr(), b, h, w, nwl, tiling.wps, tiling.seg_rows,
+            float(trusted_max), int(min_count), float(nsig_b), float(nsig_s), _stream(dev),
+        )
     dispersion_extended_fused.launches += 1
     cuda_build.check(rc, "dispersion_extended_fused kernels")
     if image.dim() == 2:

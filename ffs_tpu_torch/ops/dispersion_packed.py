@@ -201,6 +201,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _stream(dev: torch.device) -> int:
+    """The current stream of ``dev``; the caller launches under
+    ``torch.cuda.device(dev)``, so the kernel runs on the tensors' card."""
     return torch.cuda.current_stream(dev).cuda_stream
 
 
@@ -277,12 +279,13 @@ def dispersion_packed_raw(
     nwl = nwl_for_width(w)
     tiling = launch_tiling(frames, KERNEL_RADIUS, False, signal_test)
     out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=image.device)
-    rc = cuda_build.lib().ffs_dispersion_packed(
-        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
-        out.data_ptr(), b, h, w, nwl, tiling.wps, tiling.seg_rows, float(trusted_max),
-        int(min_count), float(nsig_b), float(nsig_s), int(signal_test),
-        _stream(image.device),
-    )
+    with torch.cuda.device(image.device):
+        rc = cuda_build.lib().ffs_dispersion_packed(
+            frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
+            out.data_ptr(), b, h, w, nwl, tiling.wps, tiling.seg_rows, float(trusted_max),
+            int(min_count), float(nsig_b), float(nsig_s), int(signal_test),
+            _stream(image.device),
+        )
     dispersion_packed_raw.launches += 1
     cuda_build.check(rc, "dispersion_packed kernel")
     return out if image.dim() == 3 else out[0]
@@ -364,12 +367,13 @@ def dispersion_fused(
     pcw = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=dev)
     strong = torch.empty((b, h, w), dtype=torch.uint8, device=dev) if emit_strong else None
     rowcum = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    rc = cuda_build.lib().ffs_dispersion_fused(
-        frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
-        pcw.data_ptr(), _ptr(strong), rowcum.data_ptr(), b, h, w, nwl,
-        tiling.wps, tiling.seg_rows, float(trusted_max), int(min_count), float(nsig_b),
-        float(nsig_s), int(signal_test), _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = cuda_build.lib().ffs_dispersion_fused(
+            frames.data_ptr(), PIXEL_TYPES[frames.dtype], mask_c.data_ptr(),
+            pcw.data_ptr(), _ptr(strong), rowcum.data_ptr(), b, h, w, nwl,
+            tiling.wps, tiling.seg_rows, float(trusted_max), int(min_count), float(nsig_b),
+            float(nsig_s), int(signal_test), _stream(dev),
+        )
     dispersion_fused.launches += 1
     cuda_build.check(rc, "dispersion_fused kernels")
     if image.dim() == 2:

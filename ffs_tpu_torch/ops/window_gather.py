@@ -101,16 +101,18 @@ def window_gather_plain(img: torch.Tensor, y0, x0, *, bh: int) -> torch.Tensor:
 
 def _launch(entry: str, img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, bh: int,
             out: torch.Tensor, shape=None, extra=()) -> None:
-    """Launch ``entry`` on the current stream: ``img`` contiguous on the
-    card, ``y0``/``x0`` (A,) int32 on the same card, ``out`` allocated;
-    ``shape`` the image dimensions the entry takes (default all of them),
-    ``extra`` its int arguments after ``bh``."""
+    """Launch ``entry`` on ``img``'s card and its current stream: ``img``
+    contiguous on the card, ``y0``/``x0`` (A,) int32 on the same card,
+    ``out`` allocated; ``shape`` the image dimensions the entry takes
+    (default all of them), ``extra`` its int arguments after ``bh``."""
     from ..utils import cuda_build
 
     args = [img.data_ptr(), *(img.shape if shape is None else shape), y0.data_ptr(),
             x0.data_ptr(), len(y0), bh, *extra, out.data_ptr(),
             torch.cuda.current_stream(img.device).cuda_stream]
-    cuda_build.check(getattr(cuda_build.lib(), entry)(*args), f"{entry} kernel")
+    with torch.cuda.device(img.device):
+        rc = getattr(cuda_build.lib(), entry)(*args)
+    cuda_build.check(rc, f"{entry} kernel")
 
 
 def _device_offsets(y0: np.ndarray, x0: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -195,8 +195,9 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         default=_env_choice("FFS_SPOTFIND_COMPACT", "device", ("device", "host")),
         help="Where strong-pixel compaction runs.  'host' ends the device's"
         " job at the packed strong words and expands them on the CPU against"
-        " the decoded frame copy (requires --precision f32 on a GPU)."
-        "  Env default: FFS_SPOTFIND_COMPACT.",
+        " the decoded frame copy (requires --precision f32 on a GPU; with"
+        " --precision f64 the run stops with an error: the option is not"
+        " ignored there).  Env default: FFS_SPOTFIND_COMPACT.",
     )
     p.add_argument(
         "--decode-backend",

@@ -152,7 +152,15 @@ def _capacity_error(image_number: int, n: int, capacity: int, what: str) -> Runt
 
 
 class SpotfindProcessor:
-    """Per-frame spotfinding step for a fixed detector configuration."""
+    """Per-frame spotfinding step for a fixed detector configuration.
+
+    ``config.compact_backend == "host"`` needs the kernel path (float32 on
+    a CUDA device, or ``use_kernel=True``) and host CC: without them the
+    constructor raises ValueError.  With the CLI's ``--precision f64`` that
+    means the option stops the run rather than being ignored, as the JAX
+    CLI's help would have it (ffs_tpu/spotfind.py:151-156 raises the same
+    way).
+    """
 
     def __init__(
         self,
