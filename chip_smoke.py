@@ -69,8 +69,13 @@ import).  Phases, each of which fails the run:
 12. gather variants — the lane-packed, plane-last and probe (double and
    single) gathers against their plain versions bit for bit at the gather
    tool's shapes and the integrator's, with windows at the contract's
-   edges; times beside the bound, the plain version and one
-   advanced-indexing call; then the gather tool's main
+   edges and an x0 % 4 != 0; times beside the bound, the plain version and
+   one advanced-indexing call; the probe's TMA ring over single_only x
+   r in (1, 3, 8, 16) x slots in (2, 4, 8, 16) wherever its planner admits
+   the pair (ptxas's registers and shared memory of both forms; a line a
+   pair with its stage bytes, bytes in flight and CUDA's occupancy query,
+   bit-equal, its kernel time beside the plane-first kernel's at the same
+   shapes); then the gather tool's main
    (``ffs_tpu_torch.tools.measure_window_gather``) with its bitwise
    assertions and the three launch counters rising;
 13. SSX indexing — ``tools/bench_ssx.py``'s 64 stills (the port's copy of
@@ -415,9 +420,11 @@ def bound_ms(nbytes: int, ops: float = 0.0) -> tuple[float, str]:
 
 
 def profiled_ms(fn, reps: int, names: tuple[str, ...]) -> dict[str, float]:
-    """Device ms per call of ``fn`` spent in kernels whose names contain each
-    of ``names`` (torch.profiler over ``reps`` calls; absent if the profiler
-    saw none)."""
+    """Device ms a launch of the kernels whose names contain each of
+    ``names``, over ``reps`` calls of ``fn`` (torch.profiler; absent if the
+    profiler saw none).  Each callee here launches each named kernel once a
+    call; the mean is over the records the profiler kept, so a dropped
+    record does not read as a faster kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -427,14 +434,19 @@ def profiled_ms(fn, reps: int, names: tuple[str, ...]) -> dict[str, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    sums = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         for n in names:
             if n in e.key:
-                out[n] = out.get(n, 0.0) + e.self_device_time_total / 1e3 / reps
-    return out
+                total, count = sums.get(n, (0.0, 0))
+                sums[n] = (total + e.self_device_time_total / 1e3, count + e.count)
+    return {n: total / count for n, (total, count) in sums.items()}
+
+
+def device_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_times(dev):
@@ -1291,6 +1303,92 @@ def variant_index(fn, kw, y0, x0, bh: int, wp: int, dev):
     return torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
 
 
+PROBE_R = (1, 3, 8, 16)
+PROBE_SLOTS = (2, 4, 8, 16)
+
+
+def window_bytes(img, rows, cols, out) -> tuple[int, int]:
+    """A gather's compulsory bytes (read, written): the pixels of the
+    (P, Hp, Wp) stack ``img`` under the union of what its windows copy,
+    read once, and its output, written once."""
+    import torch
+
+    covered = torch.zeros(img.shape[-2:], dtype=torch.bool, device=img.device)
+    covered[rows, cols] = True
+    read = int(covered.sum()) * img.shape[0] * img.element_size()
+    return read, out.numel() * out.element_size()
+
+
+def probe_grid(dev, shape_tag: str, frames, y0, x0, bh: int) -> None:
+    """The probe's TMA ring over single_only x r x slots at one shape: for
+    every pair the planner admits, its stage, shared memory and bytes in
+    flight beside CUDA's occupancy query, the result bit-equal to the plain
+    version, and the kernel's time (CUDA events over back-to-back launches,
+    and torch.profiler's device time) beside its bound and row 3's
+    plane-first kernel at the same shapes (timed before and after the
+    grid)."""
+    import torch
+
+    from ffs_tpu_torch.ops import window_gather as wg
+    from ffs_tpu_torch.utils import cuda_build
+
+    planes = frames.shape[0]
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    y0_d, x0_d = wg._device_offsets(y0, x0, dev)
+    out = torch.empty((len(y0), planes, bh, 128), dtype=frames.dtype, device=dev)
+    pf = lambda: wg._launch("ffs_window_gather_planes", frames, y0_d, x0_d, bh, out)  # noqa: E731
+    pf_ms = [cuda_ms(pf, 200)]
+    pf_dev = profiled_ms(pf, 50, ("gather_windows_kernel",)).get("gather_windows_kernel")
+    rows = []
+    for single in (False, True):
+        want = wg.window_gather_probe_plain(frames, y0, x0, bh=bh, single_only=single)
+        rows_i, cols_i = variant_index(wg.window_gather_probe, {"single_only": single}, y0, x0,
+                                       bh, frames.shape[-1], dev)
+        bound = bound_ms(sum(window_bytes(frames, rows_i, cols_i, want)) + 8 * len(y0))[0]
+        for r in PROBE_R:
+            for slots in PROBE_SLOTS:
+                tag = (f"probe {shape_tag} {'single' if single else 'double'} r={r:2d} "
+                       f"slots={slots:2d}")
+                try:
+                    plan = wg.probe_plan(planes, bh, r, slots, limit, single_only=single)
+                except ValueError as e:
+                    say(f"{tag}: not admitted ({e})")
+                    continue
+                with torch.cuda.device(dev):
+                    occupancy = cuda_build.lib().ffs_window_gather_probe_blocks_per_sm(
+                        int(single), plan.smem_bytes)
+                if occupancy != plan.blocks_per_sm:
+                    fail(f"{tag}: the planner counts {plan.blocks_per_sm} blocks an SM, CUDA's "
+                         f"occupancy query {occupancy}")
+                got = wg.window_gather_probe(frames, y0, x0, bh=bh, single_only=single, r=r,
+                                             slots=slots)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    fail(f"{tag} differs from its plain version")
+                extra = wg.probe_extra(single, r, slots, plan)
+                kernel = lambda extra=extra: wg._launch(  # noqa: E731
+                    "ffs_window_gather_probe", frames, y0_d, x0_d, bh, out, extra=extra)
+                ms = cuda_ms(kernel, 200)
+                dev_ms = profiled_ms(kernel, 50, ("gather_probe_kernel",)).get(
+                    "gather_probe_kernel")
+                rows.append((single, r, slots, ms, dev_ms))
+                say(f"{tag}: bit-equal; stage {plan.stage_planes} plane(s) = {plan.stage_bytes} "
+                    f"B, {plan.smem_bytes} B shared a block, blocks an SM {plan.blocks_per_sm} "
+                    f"planned / {occupancy} CUDA's occupancy query, {plan.bytes_in_flight} B in "
+                    f"flight an SM; kernel {ms:.4f} ms events, {device_text(dev_ms)} device "
+                    f"(bound {bound:.4f} ms: {100 * bound / ms:.1f}% by events)")
+    pf_ms.append(cuda_ms(pf, 200))
+    say(f"row 3's plane-first kernel (ffs_window_gather_planes) at the {shape_tag}'s shapes: "
+        f"{pf_ms[0]:.4f} / {pf_ms[1]:.4f} ms events, {device_text(pf_dev)} device")
+    for single in (False, True):
+        form = [row for row in rows if row[0] == single]
+        best = min(form, key=lambda row: row[3])
+        say(f"probe {shape_tag} {'single' if single else 'double'} best pair r={best[1]} "
+            f"slots={best[2]}: "
+            f"{best[3]:.4f} ms events, {device_text(best[4])} device, against the plane-first "
+            f"kernel's {min(pf_ms):.4f} ms events, {device_text(pf_dev)} device")
+
+
 def phase_gather_variants(dev, integ, frames_host):
     """Kernels 8-10 against their plain versions at the gather tool's shapes
     and the integrator's, with times at the tool's; then the gather tool's
@@ -1299,11 +1397,13 @@ def phase_gather_variants(dev, integ, frames_host):
 
     from ffs_tpu_torch.ops import window_gather as wg
     from ffs_tpu_torch.tools import measure_window_gather as mwg
+    from ffs_tpu_torch.utils import cuda_build
 
     frames, y0, x0 = mwg.make_inputs(dev)
     hp, wp = frames.shape[-2:]
     y0, x0 = y0.astype(np.int64), x0.astype(np.int64)
-    x0[0], y0[1], x0[2] = wp - 129, hp - mwg.BH, 256  # the contract's edges, an aligned start
+    # the contract's edges, an aligned start, x0 % 4 == 1 (off TMA's 16-byte grid)
+    x0[0], y0[1], x0[2], x0[3] = wp - 129, hp - mwg.BH, 256, 1029
     _, _, _, img_i, bh_i, y0_i, x0_i = gather_cases(integ, frames_host)[0]
     shapes = (("tool", frames, mwg.BH, y0, x0), ("integrator", img_i, bh_i, y0_i, x0_i))
     kernels = (
@@ -1340,7 +1440,8 @@ def phase_gather_variants(dev, integ, frames_host):
             if fn is wg.window_gather_planes_pl:
                 extra = {"shape": src.shape[:3]}
             elif fn is wg.window_gather_probe:
-                extra = {"extra": (int(kw["single_only"]), 8)}
+                plan = wg.probe_plan(img.shape[0], bh, 8, 2, single_only=kw["single_only"])
+                extra = {"extra": wg.probe_extra(kw["single_only"], 8, 2, plan)}
             kernel = lambda: wg._launch(entry, src, y0_d, x0_d, bh, got, **extra)  # noqa: E731
             rows, cols = variant_index(fn, kw, yy, xx, bh, wp, dev)
             if fn is wg.window_gather_planes_pl:
@@ -1353,23 +1454,32 @@ def phase_gather_variants(dev, integ, frames_host):
             lib_ms = cuda_ms(library, 20)
             k2 = cuda_ms(kernel, 200)
             p2 = cuda_ms(lambda: plain(src, yy, xx, bh=bh, **kw), 10)
-            # compulsory bytes: the source pixels under the union of what the
-            # windows copy, read once; the output written once; the offsets
-            covered = torch.zeros((hp, wp), dtype=torch.bool, device=dev)
-            covered[rows, cols] = True
-            read = int(covered.sum()) * img.shape[0] * img.element_size()
-            written = got.numel() * got.element_size()
+            kernel_name = {"ffs_window_gather_planes_packed": "gather_packed_kernel",
+                           "ffs_window_gather_planes_pl": "gather_pl_kernel",
+                           "ffs_window_gather_probe": "gather_probe_kernel"}[entry]
+            dev_ms = profiled_ms(kernel, 200, (kernel_name,)).get(kernel_name)
+            # compulsory bytes: the windows' union and the output; the offsets
+            read, written = window_bytes(img, rows, cols, got)
             nbytes = read + written + 2 * 4 * len(yy)
             bound = bound_ms(nbytes)
             if fn.__name__ not in figures:  # the probe's row: its double form
                 figures[fn.__name__] = {"max_abs_err": err, "ms": (k1 + k2) / 2,
                                         "plain_ms": (p1 + p2) / 2, "bound": bound,
                                         "library_ms": lib_ms}
-            say(f"time gather {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
-                f"ms, one advanced-indexing call {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            say(f"time gather {name}: kernel {k1:.4f} / {k2:.4f} ms (device {device_text(dev_ms)}"
+                f"), plain {p1:.4f} / {p2:.4f} ms, one advanced-indexing call {lib_ms:.4f} ms, "
+                f"bound {bound[0]:.4f} ms "
                 f"({read} B read under the windows' union, {written} B written); "
                 f"{nbytes / ((k1 + k2) / 2) / 1e9:.3f} TB/s")
 
+    log = cuda_build.build_log().splitlines()
+    for k, line in enumerate(log):
+        if "Function properties for" in line and "gather_probe_kernel" in line:
+            form = "single" if "ILb1E" in line else "double"
+            ptxas = " ".join(x.split(":", 1)[-1].strip() for x in log[k + 1 : k + 3])
+            say(f"ptxas gather_probe_kernel<{form}>: {ptxas}")
+    for shape_tag, img, bh, yy, xx in shapes:
+        probe_grid(dev, shape_tag, img, yy, xx, bh)
     profile_device("profile of one gather-tool pf rep (add, gather, sum)",
                    lambda: wg.window_gather_planes(frames + 1, y0, x0, bh=mwg.BH).sum())
 

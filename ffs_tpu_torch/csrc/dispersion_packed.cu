@@ -38,7 +38,14 @@
 
 #include "common.cuh"
 
+// CUDA's message for `code`, or for the window-gather probe's own codes
+// past 100000 (window_gather.cu): a libcuda without cuTensorMapEncodeTiled,
+// or 100001 + the CUresult of a refused tensor map.
 extern "C" const char* ffs_cuda_error_string(int code) {
+  if (code == 100000) return "libcuda has no cuTensorMapEncodeTiled entry point";
+  if (code > 100000) {
+    return "cuTensorMapEncodeTiled refused the tensor map (CUresult = code - 100001)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -33,10 +33,14 @@ own kernel, plain version and counter, under the same contract checks:
   ``tools/measure_window_gather.py``): the plane-first gather with ``r``
   windows per block, or with ``single_only`` the one-block rotate
   ``img[q, y0+r, 128*xblk + (c + shift) % 128]``, xblk = min(x0 // 128,
-  Wp/128 - 2), shift = x0 - 128*xblk, the TPU probe's result.
+  Wp/128 - 2), shift = x0 - 128*xblk, the TPU probe's result.  Its kernel
+  loads through TMA into a ring of ``slots`` shared-memory stages, which
+  :func:`probe_plan` sizes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -231,16 +235,102 @@ def probe_columns(x0: np.ndarray, wp: int, single_only: bool) -> np.ndarray:
     return LANES * xblk[:, None] + (c + shift[:, None]) % LANES
 
 
-def _check_probe(img, y0, x0, bh, r, slots):
+# The probe's ring (csrc/window_gather.cu): four consumer warps and one
+# producer warp a block; the shared-memory and thread limits are the H100's.
+PROBE_THREADS = 160
+PROBE_MAX_BOX = 256  # TMA's largest box dimension
+# Words a row of a ring stage: the single form's aligned block; the double
+# form's 16-byte aligned start x0 & ~3 (TMA needs it) and the 131 columns it
+# may need from there
+PROBE_BOX_WIDTH = {True: LANES, False: LANES + 4}
+H100_SMEM_BLOCK_OPTIN = 232_448  # shared memory a block may opt in to (227 KB)
+H100_SMEM_SM = 233_472  # shared memory an SM holds (228 KB)
+SMEM_RESERVED_BLOCK = 1024  # of it, CUDA's own a resident block
+SM_THREADS, SM_BLOCKS = 2048, 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbePlan:
+    """How the probe's kernel lays out its ring for one (P, bh, slots)."""
+
+    stage_planes: int  # planes a ring stage holds: P (a window) or 1 (a window-plane)
+    stage_bytes: int  # one stage, a (132 or 128, bh, stage_planes) TMA box of 4-byte words
+    smem_bytes: int  # a block's dynamic shared memory: the stages, their barriers, alignment
+    blocks_per_sm: int  # resident blocks an SM that shared memory and threads allow
+    # an SM's loads in flight while its blocks write a stage out:
+    # blocks_per_sm x min(slots - 1, a block's r x P / stage_planes stages) x stage_bytes
+    bytes_in_flight: int
+
+
+def probe_smem_bytes(slots: int, stage_planes: int, bh: int, single_only: bool = False) -> int:
+    """A block's dynamic shared memory: ``slots`` stages with a full and an
+    empty 8-byte mbarrier each, and 128 bytes to align the first stage."""
+    return slots * (stage_planes * bh * PROBE_BOX_WIDTH[bool(single_only)] * 4 + 16) + 128
+
+
+def probe_plan(planes: int, bh: int, r: int, slots: int, smem_limit: int = H100_SMEM_BLOCK_OPTIN,
+               *, single_only: bool = False) -> ProbePlan:
+    """The probe's ring for ``planes`` planes of ``bh``-row windows, ``r``
+    windows a block and ``slots`` stages, in ``smem_limit`` bytes of shared
+    memory a block.  A stage holds a whole window (P planes) or one
+    window-plane, whichever of the two that fits keeps more bytes in flight
+    an SM (the whole window on a tie: fewer loads and barrier trips); a
+    block's ring holds no more loads than its ``r`` windows make.
+    Raises ValueError where even ``slots`` window-plane stages do not fit
+    (``slots`` is never clamped), and for a box TMA cannot load (bh or P
+    over 256).  At the gather tool's bh = 24, P = 4 (double form): a
+    window-plane is 12,672 B and a window 50,688 B; slots = 2 and 4 keep
+    the same bytes in flight either way and take window stages, slots = 8
+    and 16 fit only window-plane stages.  At the integrator's bh = 32 and
+    slots = 2, window-plane stages keep six blocks an SM (101 KB in flight)
+    where window stages keep one (66 KB).  At r = 1 and slots = 4 a block
+    has one window: window-plane stages keep four blocks an SM with three
+    loads ahead each, where a window stage would keep one load."""
     if r < 1 or slots < 2:
         raise ValueError(f"r={r} must be >= 1 and slots={slots} >= 2")
-    return _check(img, y0, x0, bh, planes=True)
+    if bh > PROBE_MAX_BOX or planes > PROBE_MAX_BOX:
+        raise ValueError(f"bh={bh} and P={planes} must be <= {PROBE_MAX_BOX}, "
+                         "the largest dimension of a TMA box")
+    best = None
+    for stage_planes in dict.fromkeys((planes, 1)):
+        smem = probe_smem_bytes(slots, stage_planes, bh, single_only)
+        if smem > smem_limit:
+            continue
+        stage = stage_planes * bh * PROBE_BOX_WIDTH[bool(single_only)] * 4
+        blocks = min(H100_SMEM_SM // (smem + SMEM_RESERVED_BLOCK), SM_THREADS // PROBE_THREADS,
+                     SM_BLOCKS)
+        ahead = min(slots - 1, r * planes // stage_planes)
+        plan = ProbePlan(stage_planes, stage, smem, blocks, blocks * ahead * stage)
+        if best is None or plan.bytes_in_flight > best.bytes_in_flight:
+            best = plan
+    if best is None:
+        raise ValueError(f"slots={slots} window-plane stages of bh={bh} rows need {smem} B of "
+                         f"shared memory a block, over the {smem_limit} B limit; "
+                         "lower slots or bh")
+    return best
+
+
+def probe_extra(single_only: bool, r: int, slots: int, plan: ProbePlan) -> tuple[int, ...]:
+    """The probe entry's int arguments after ``bh``."""
+    return int(single_only), int(r), int(slots), plan.stage_planes, plan.smem_bytes
+
+
+def _check_probe(img, y0, x0, bh, single_only, r, slots, smem_limit=H100_SMEM_BLOCK_OPTIN):
+    """The gather contract, the ring's plan and a 16-byte aligned base (the
+    tensor map's); returns the host offsets and the plan."""
+    y0, x0 = _check(img, y0, x0, bh, planes=True)
+    plan = probe_plan(img.shape[0], bh, r, slots, smem_limit, single_only=single_only)
+    if img.is_contiguous() and img.data_ptr() % 16:
+        raise ValueError(f"the probe's image must start 16-byte aligned (a TMA tensor map's "
+                         f"base), got data_ptr() % 16 = {img.data_ptr() % 16}")
+    return y0, x0, plan
 
 
 def window_gather_probe_plain(img: torch.Tensor, y0, x0, *, bh: int, single_only: bool = False,
                               r: int = 8, slots: int = 2) -> torch.Tensor:
-    """The plain PyTorch version of :func:`window_gather_probe`."""
-    y0, x0 = _check_probe(img, y0, x0, bh, r, slots)
+    """The plain PyTorch version of :func:`window_gather_probe`, under the
+    same checks; ``r`` and ``slots`` change nothing in the result."""
+    y0, x0, _ = _check_probe(img, y0, x0, bh, single_only, r, slots)
     rows, _ = window_index(y0, x0, bh, img.device)
     cols = torch.as_tensor(probe_columns(x0, img.shape[-1], single_only), device=img.device)
     return img[:, rows, cols[:, None, :]].permute(1, 0, 2, 3).contiguous()
@@ -249,18 +339,25 @@ def window_gather_probe_plain(img: torch.Tensor, y0, x0, *, bh: int, single_only
 def window_gather_probe(img: torch.Tensor, y0, x0, *, bh: int, single_only: bool = False,
                         r: int = 8, slots: int = 2) -> torch.Tensor:
     """The measurement probe's (A, P, bh, 128) windows of a (P, Hp, Wp)
-    stack.  ``r`` is the windows each CUDA block serves; ``slots``, the
-    TPU probe's DMA pipeline depth, has no GPU counterpart and changes
-    nothing (checked only to be >= 2, as the TPU's lookahead needs)."""
+    stack.  ``r`` is the windows each CUDA block serves.  ``slots`` is the
+    depth of the block's ring of shared-memory stages, which TMA loads fill
+    while the block writes out an earlier one: up to ``slots - 1`` loads
+    in flight a block, each a whole window or one window-plane as
+    :func:`probe_plan` decides, so it changes the bytes in flight and
+    never the result.  A plan that does not fit the card's shared memory,
+    a box over 256 rows or planes, or an image not 16-byte aligned raises
+    ValueError before anything runs."""
     if img.device.type == "cpu":
         return window_gather_probe_plain(img, y0, x0, bh=bh, single_only=single_only, r=r,
                                          slots=slots)
     if img.device.type != "cuda":
         raise ValueError(f"no kernel for device {img.device}")
-    y0, x0 = _check_probe(img, y0, x0, bh, r, slots)
-    out = torch.empty((len(y0), img.shape[0], bh, LANES), dtype=img.dtype, device=img.device)
-    _launch("ffs_window_gather_probe", img.contiguous(), *_device_offsets(y0, x0, img.device),
-            bh, out, extra=(int(single_only), int(r)))
+    src = img.contiguous()
+    limit = torch.cuda.get_device_properties(src.device).shared_memory_per_block_optin
+    y0, x0, plan = _check_probe(src, y0, x0, bh, single_only, r, slots, limit)
+    out = torch.empty((len(y0), src.shape[0], bh, LANES), dtype=src.dtype, device=src.device)
+    _launch("ffs_window_gather_probe", src, *_device_offsets(y0, x0, src.device), bh, out,
+            extra=probe_extra(single_only, r, slots, plan))
     window_gather_probe.launches += 1
     return out
 

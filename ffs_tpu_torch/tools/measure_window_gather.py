@@ -16,8 +16,11 @@ consumed:
 - ``probe_*``: the measurement probe (``make_probe_gather``): the
   single-block form (one aligned 128-column block a window row, rotated:
   the window itself only where x0 % 128 == 0), and the double form with
-  ``r`` windows per block and the TPU's pipeline depth ``slots``, which
-  has no counterpart on the card and leaves the result unchanged;
+  ``r`` windows per block and ``slots``, the depth of each block's ring of
+  shared-memory stages that TMA loads fill (up to ``slots - 1`` loads in
+  flight a block while it writes one stage out; ``probe_plan`` says what
+  a stage holds).  The ``probe_s{slots}_r{r}`` rows time the ring's depth;
+  ``slots`` never changes the result;
 - ``pf_packed``: the lane-packed gather (``window_gather_planes_packed``),
   a row the JAX tool lacks.
 
@@ -72,7 +75,9 @@ def to_pl(frames: torch.Tensor) -> torch.Tensor:
 
 
 def make_probe_gather(single_only: bool, r: int = 8, slots: int = 2):
-    """The probe with its knobs bound: ``gather(img, y0, x0, *, bh)``."""
+    """The probe with its knobs bound: ``gather(img, y0, x0, *, bh)``; ``r``
+    windows a CUDA block, through a TMA ring of ``slots`` stages (the
+    loads in flight, as the TPU probe's DMA lookahead ``slots - 1``)."""
     return functools.partial(window_gather_probe, single_only=single_only, r=r, slots=slots)
 
 

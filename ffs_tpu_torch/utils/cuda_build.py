@@ -156,8 +156,10 @@ def lib() -> ctypes.CDLL:
     kernels.ffs_window_gather_planes_packed.restype = i
     kernels.ffs_window_gather_planes_pl.argtypes = [p, i, i, i, p, p, i, i, p, p]
     kernels.ffs_window_gather_planes_pl.restype = i
-    kernels.ffs_window_gather_probe.argtypes = [p, i, i, i, p, p, i, i, i, i, p, p]
+    kernels.ffs_window_gather_probe.argtypes = [p, i, i, i, p, p, i, i, i, i, i, i, i, p, p]
     kernels.ffs_window_gather_probe.restype = i
+    kernels.ffs_window_gather_probe_blocks_per_sm.argtypes = [i, i]
+    kernels.ffs_window_gather_probe_blocks_per_sm.restype = i
     kernels.ffs_bitshuffle_frames.argtypes = [p, i, i, i, i, i, p, p]
     kernels.ffs_bitshuffle_frames.restype = i
     kernels.ffs_cuda_error_string.argtypes = [i]

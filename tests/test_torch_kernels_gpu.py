@@ -201,8 +201,8 @@ def test_gather_variants_match_plain(cuda, dtype):
         (wg.window_gather_planes_pl, wg.window_gather_planes_pl_plain, pl, {}),
     ] + [
         (wg.window_gather_probe, wg.window_gather_probe_plain, img,
-         dict(single_only=single, r=r))
-        for single in (False, True) for r in (1, 8, 16)
+         dict(single_only=single, r=r, slots=slots))
+        for single in (False, True) for r in (1, 3, 8, 16) for slots in (2, 4, 16)
     ]
     pf = wg.window_gather_planes_plain(img, y0, x0, bh=bh)
     for fn, plain, src, kw in cases:
@@ -215,6 +215,76 @@ def test_gather_variants_match_plain(cuda, dtype):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (fn.__name__, kw)
         if fn is not wg.window_gather_planes_packed and not kw.get("single_only"):
             assert torch.equal(got.view(torch.int32), pf.view(torch.int32))
+
+
+@pytest.mark.parametrize("bh", [8, 24, 40, 256])
+@pytest.mark.parametrize("planes", [1, 4, 6])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_probe_ring_matches_plain(cuda, dtype, planes, bh):
+    """The probe's TMA ring against its plain version, bit for bit, in both
+    forms over r, slots and window counts (none, fewer than a block's r,
+    a partial last block), at the contract's edges and x0 % 4 != 0, with
+    float32 NaN bit patterns; a plan the shared memory cannot hold raises
+    before a launch, in the kernel's wrapper and the plain version alike."""
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    rng = np.random.default_rng(100 + planes + bh)
+    hp, wp = bh + 61, 640
+    bits = rng.integers(-(2**31), 2**31 - 1, (planes, hp, wp), dtype=np.int64).astype(np.int32)
+    bits[:, :, 7::61] = np.array([0x7FC00001, -1, 0x7F800001, -4194304], np.int32)[
+        np.arange(bits[:, :, 7::61].shape[-1]) % 4]  # quiet, negative and signalling NaNs
+    img = torch.from_numpy(bits).to(cuda).view(dtype)
+    y0 = rng.integers(0, hp - bh + 1, 2049)
+    x0 = rng.integers(0, wp - 128, 2049)
+    y0[:5] = [hp - bh, 0, 3, hp - bh, 1]
+    x0[:5] = [wp - 129, 256, 5, 0, 383]  # the last start, aligned, x0 % 4 == 1, 0, 3
+    ran = 0
+    for r in (1, 3, 8, 16):
+        for slots in (2, 4, 16):
+            try:
+                plan = wg.probe_plan(planes, bh, r, slots)
+            except ValueError as e:
+                assert "limit" in str(e)
+                with pytest.raises(ValueError, match="limit"):
+                    wg.window_gather_probe(img, y0[:r], x0[:r], bh=bh, r=r, slots=slots)
+                with pytest.raises(ValueError, match="limit"):
+                    wg.window_gather_probe_plain(img, y0[:r], x0[:r], bh=bh, r=r, slots=slots)
+                continue
+            assert plan.smem_bytes <= torch.cuda.get_device_properties(
+                cuda).shared_memory_per_block_optin
+            for a in sorted({1, r - 1, 2049}):
+                for single in (False, True):
+                    kw = dict(single_only=single, r=r, slots=slots)
+                    want = wg.window_gather_probe_plain(img, y0[:a], x0[:a], bh=bh, **kw)
+                    before = wg.window_gather_probe.launches
+                    got = wg.window_gather_probe(img, y0[:a], x0[:a], bh=bh, **kw)
+                    torch.cuda.synchronize()
+                    assert wg.window_gather_probe.launches == before + 1
+                    assert got.dtype == dtype and got.shape == want.shape == (a, planes, bh, 128)
+                    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (a, kw)
+                    ran += 1
+    assert ran > 0 or bh == 256  # a 256-row window-plane is 128 KB: two never fit
+
+
+def test_probe_unfit_plan_and_misaligned_base_raise(cuda):
+    """Plans the card's shared memory cannot hold, boxes over 256 rows and
+    an image that does not start 16-byte aligned raise ValueError before a
+    launch; the launch counter stays."""
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    img = torch.zeros((2, 300, 512), dtype=torch.int32, device=cuda)
+    y0, x0 = np.zeros(4, int), np.zeros(4, int)
+    before = wg.window_gather_probe.launches
+    for bh, slots in ((256, 2), (24, 32), (40, 16)):
+        with pytest.raises(ValueError, match="limit"):
+            wg.window_gather_probe(img, y0, x0, bh=bh, slots=slots)
+    with pytest.raises(ValueError, match="256"):
+        wg.window_gather_probe(torch.zeros((1, 300, 512), dtype=torch.int32, device=cuda),
+                               y0, x0, bh=264)
+    flat = torch.zeros(2 * 64 * 512 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        wg.window_gather_probe(flat[1:].view(2, 64, 512), y0, x0, bh=8)
+    assert wg.window_gather_probe.launches == before
 
 
 def test_kabsch_integrate_on_gpu_matches_cpu(cuda):
