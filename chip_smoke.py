@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the spotfinder, the
-integrator and the indexers.
+integrator (with ``--bg-device``), the predictor CLI and the indexers.
 
     python3 chip_smoke.py
 
@@ -94,7 +94,20 @@ import).  Phases, each of which fails the run:
 15. the PIA hook — the ``spotfinder`` CLI's ``--output-for-index`` pipe
    lines on the six sample frames through ``index_pipe_payload`` with an
    armed indexer: every line comes back with ``lattices`` and
-   ``n_unindexed``, the indexed and unindexed counts adding up to its spots.
+   ``n_unindexed``, the indexed and unindexed counts adding up to its spots;
+16. ``--bg-device`` — (a) phase 7's collection through
+   ``integrate_experiment`` on the host and the device path, both
+   background models: device bounding boxes equal to the host's bit for
+   bit, accumulators equal to phase 7's, every column within 1e-12 of the
+   host path (integers exactly), the gathers launched as the run's chunks
+   say; stage times of both paths; (b) the whole 3600-image sweep (~1.63M
+   predictions on the card): device bounding boxes against the host's on
+   every row, seeded histograms (with edge rows) and accumulators through
+   the device backgrounds and finalisation at that N against the host
+   functions on the first HOST_ROWS rows, both timed, and the device
+   stages' share of an estimated ``integrate()`` of the sweep; (c)
+   ``baseline_predictor_torch`` (``predictor.run``) on the sweep's
+   experiment, its table equal to ``predict_rotation``'s exactly.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -537,10 +550,10 @@ def phase_processor(dev):
     return out
 
 
-def eiger_experiment(seed: int = 20261016):
+def eiger_experiment(seed: int = 20261016, n_images: int | None = None):
     """The integrator's configuration: a thaumatin crystal in a seeded
-    orientation on an Eiger 16M at 200 mm, lambda 0.976 A, N_IMAGES images
-    of 0.1 degrees."""
+    orientation on an Eiger 16M at 200 mm, lambda 0.976 A, ``n_images``
+    (by default N_IMAGES) images of 0.1 degrees."""
     from ffs_tpu_torch.models.crystal import Crystal
     from ffs_tpu_torch.models.experiment import Experiment
     from ffs_tpu_torch.models.geometry import Goniometer, MonochromaticBeam, Scan, simple_panel
@@ -554,7 +567,7 @@ def eiger_experiment(seed: int = 20261016):
         beam=MonochromaticBeam(wavelength=0.976),
         panel=simple_panel(200.0, (w / 2, h / 2), (0.075, 0.075), (w, h)),
         goniometer=Goniometer(),
-        scan=Scan(image_range=(1, N_IMAGES), oscillation=(0.0, 0.1)),
+        scan=Scan(image_range=(1, n_images or N_IMAGES), oscillation=(0.0, 0.1)),
         crystal=Crystal(*cell),
     )
 
@@ -1751,6 +1764,414 @@ def phase_pia_hook(dev, card: str) -> None:
             f"{1e3 * dt:.1f} ms on {card}")
 
 
+# phase 16: the integrator's --bg-device path.  (a) phase 7's collection
+# through integrate_experiment(bg_device=True), both background models,
+# against the host path; (b) the whole sweep that phase 7 cuts to 40 images
+# (~1.63M predictions): device bounding boxes, backgrounds and finalisation
+# at that N, the host functions on its first HOST_ROWS rows (the host GLM
+# over every row would take minutes); (c) baseline_predictor_torch on the
+# sweep's experiment
+SWEEP_IMAGES = 3600
+HOST_ROWS = 65536
+# the JAX package's own tolerances: its device background against NumPy
+# (tests/test_integrator_cli.py), its device finalisation against NumPy
+# (tests/test_integration.py)
+BG_TOL = dict(rtol=1e-12, atol=1e-12)
+FIN_TOL = dict(rtol=1e-12, atol=1e-14)
+FIN_FIELDS = ("intensity", "variance", "background_mean", "background_sum", "xyzobs_px",
+              "partiality", "lp", "d")
+
+
+def timed(fn):
+    """(fn(), seconds) on the host clock, the device synchronised on both
+    sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def differ(got: dict, want: dict, tol: dict) -> list[str]:
+    """Names of the entries of ``want`` that ``got`` does not match: floats
+    within ``tol``, everything else exactly, dtypes and shapes equal."""
+    bad = []
+    for name, b in want.items():
+        a, b = np.asarray(got[name]), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad.append(f"{name} ({a.dtype}{a.shape} against {b.dtype}{b.shape})")
+        elif np.issubdtype(b.dtype, np.floating):
+            if not np.allclose(a, b, equal_nan=True, **tol):
+                rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+                bad.append(f"{name} (max relative difference {np.nanmax(rel):.2e})")
+        elif not np.array_equal(a, b):
+            bad.append(f"{name} ({int((a != b).sum())} entries differ)")
+    return bad
+
+
+def bbox_mismatch(label: str, got: np.ndarray, want: np.ndarray, inputs) -> None:
+    """Fails, with the rows' inputs and extents, where two bounding-box
+    arrays differ."""
+    rows = np.flatnonzero((got != want).any(axis=1))
+    if len(rows):
+        s1, phi = inputs
+        detail = "; ".join(f"row {r}: s1 {s1[r].tolist()} phi {phi[r]!r} device "
+                           f"{got[r].tolist()} host {want[r].tolist()}" for r in rows[:3])
+        fail(f"{label}: {len(rows)} of {len(want)} device bounding boxes differ from the "
+             f"host's: {detail}")
+
+
+def phase_bg_device(dev, card: str, col, acc7) -> None:
+    """Phase 16 (a): ``integrate_experiment`` on phase 7's collection, host
+    and device path for both background models: device boxes bit-equal to
+    the host's, accumulators bit-equal to phase 7's, every column within the
+    JAX package's finalisation tolerance (integers exactly), the same valid
+    and rejected counts, and the gathers launched as the run's chunks say."""
+    import torch
+
+    from ffs_tpu_torch.integration import extent
+    from ffs_tpu_torch.ops import window_gather as wg
+    from ffs_tpu_torch.pipeline.integrator import integrate_experiment
+
+    expt, pred = col.expt, col.pred
+    sigma_b, sigma_m = np.deg2rad(SIGMA_B_DEG), np.deg2rad(SIGMA_M_DEG)
+    phi = pred.xyzcal_mm[:, 2]
+    args = (expt.beam.s0, expt.goniometer.rotation_axis, pred.s1, phi, sigma_b, sigma_m,
+            expt.panel, expt.scan)
+    bbox_mismatch("bg-device", extent.compute_kabsch_bounding_boxes_device(*args, device=dev),
+                  extent.compute_kabsch_bounding_boxes(*args), (pred.s1, phi))
+    say(f"bg-device: the device bounding boxes of {len(phi)} predictions equal the host's "
+        f"bit for bit")
+
+    reader = HostFrames(col.frames, col.mask)
+    for background in ("constant", "glm"):
+        runs = {}
+        for bg_device in (False, True):
+            stage_t: dict[str, float] = {}
+            t_last = time.perf_counter()
+
+            def mark(stage: str) -> None:
+                nonlocal t_last
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                stage_t[stage] = stage_t.get(stage, 0.0) + (now - t_last)
+                t_last = now
+
+            buf = io.StringIO()
+            wg.window_gather_planes.launches = 0
+            wg.window_gather.launches = 0
+            with contextlib.redirect_stdout(buf):
+                out = integrate_experiment(
+                    expt, {}, reader, device=dev, sigma_b=sigma_b, sigma_m=sigma_m,
+                    background=background, bg_device=bg_device, mark=mark,
+                )
+            mark("finalize")
+            launches = {"window_gather_planes": wg.window_gather_planes.launches,
+                        "window_gather": wg.window_gather.launches}
+            integ = out.integrator
+            want = {"window_gather_planes": integ.chunk_setups + integ.block_steps,
+                    "window_gather": integ.chunk_setups}
+            tag = f"{background}, {'device' if bg_device else 'host'}"
+            if launches != want or min(launches.values()) == 0:
+                fail(f"bg-device ({tag}): gather launches {launches}, expected {want}")
+            for name in ACC_FIELDS:
+                if not np.array_equal(getattr(out.acc, name), getattr(acc7, name)):
+                    fail(f"bg-device ({tag}): accumulator {name} differs from phase 7's")
+            summary = [line for line in buf.getvalue().splitlines()
+                       if line.startswith(("Summation", "Background estimate", "note:"))]
+            runs[bg_device] = out, stage_t, summary, launches
+        (host, host_t, host_sum, _), (devo, dev_t, dev_sum, launches) = runs[False], runs[True]
+        if not np.array_equal(devo.integrator.bboxes, host.integrator.bboxes):
+            fail(f"bg-device ({background}): the integrator's boxes differ between the paths")
+        bad = differ(devo.columns, host.columns, FIN_TOL)
+        if bad:
+            fail(f"bg-device ({background}): columns differ from the host path's: {bad}")
+        if dev_sum != host_sum:
+            fail(f"bg-device ({background}): device path says {dev_sum}, host path {host_sum}")
+        say(f"bg-device {background}: accumulators equal phase 7's bit for bit, every column "
+            f"within rtol 1e-12 of the host path (integers exactly); {'; '.join(dev_sum)}; "
+            f"gather launches {launches}")
+        say(f"bg-device {background} stage ms on {card}: "
+            + ", ".join(f"{stage} host {1e3 * host_t[stage]:.1f} / device "
+                        f"{1e3 * dev_t[stage]:.1f}"
+                        for stage in ("bbox+setup", "background", "finalize")))
+
+
+def seeded_histograms(n: int, dev, seed: int = 11):
+    """Background histograms of ``n`` reflections made on the card: each row
+    100-1000 Poisson pixels of a mean in [0.5, 40.5), values of 256 and up
+    in the overflow count.  The first rows are the edge cases, by label."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lam = torch.rand(n, generator=gen, device=dev, dtype=torch.float32) * 40.0 + 0.5
+    npx = torch.randint(100, 1001, (n,), generator=gen, device=dev)
+    cols = torch.arange(1000, device=dev)
+    counts = torch.empty((n, 257), dtype=torch.int64, device=dev)
+    block = 65536
+    for r0 in range(0, n, block):
+        m = min(n, r0 + block) - r0
+        v = torch.poisson(lam[r0 : r0 + m, None].expand(m, 1000).contiguous(), gen)
+        idx = v.clamp_(max=256).long() + torch.arange(m, device=dev)[:, None] * 257
+        idx = idx[cols[None, :] < npx[r0 : r0 + m, None]]
+        counts[r0 : r0 + m] = torch.bincount(idx, minlength=m * 257).view(m, 257)
+    edges = []
+
+    def edge(label, row, over=0):
+        edges.append((label, row, over))
+
+    rng = np.random.default_rng(seed)
+    for _ in range(4):
+        v = rng.poisson(300.0, 400)
+        edge("overflow > 25%", np.bincount(v[v < 256], minlength=256), int((v >= 256).sum()))
+    for k in (5, 9):
+        edge("< 10 pixels", np.bincount(rng.poisson(4.0, k), minlength=256))
+    edge("empty", np.zeros(256, np.int64))
+    edge("empty", np.zeros(256, np.int64))
+    for hits in (((2, 2001), (40, 2000)), ((0, 300), (2, 1), (255, 300))):
+        row = np.zeros(256, np.int64)
+        for value, count in hits:
+            row[value] = count
+        edge("GLM_MAX_ITER", row)
+    row = np.zeros(256, np.int64)
+    row[0] = 500
+    edge("all zero", row)
+    for k, (_, row, over) in enumerate(edges):
+        counts[k, :256] = torch.as_tensor(row, device=dev)
+        counts[k, 256] = over
+    return counts[:, :256].contiguous(), counts[:, 256].contiguous(), [e[0] for e in edges]
+
+
+def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
+    """Phase 16 (b): the device stages of ``--bg-device`` at collection
+    scale; returns (experiment, predictions) for (c)."""
+    import types
+
+    import torch
+
+    from ffs_tpu_torch.integration import background as bg_host
+    from ffs_tpu_torch.integration import extent
+    from ffs_tpu_torch.integration import finalize as fin
+    from ffs_tpu_torch.integration.background_device import estimate_background_device
+    from ffs_tpu_torch.prediction.rotation import predict_rotation
+
+    expt = eiger_experiment(n_images=SWEEP_IMAGES)
+    pred, t_pred = timed(lambda: predict_rotation(expt, device=dev))
+    n = len(pred.hkl)
+    say(f"sweep: {SWEEP_IMAGES} images, {n} predictions ({n / SWEEP_IMAGES:.0f} per image) "
+        f"from predict_rotation in {t_pred:.1f} s on {card}")
+    if n < 1_500_000:
+        fail(f"sweep: only {n} predictions")
+    k = HOST_ROWS
+    sigma_b, sigma_m = np.deg2rad(SIGMA_B_DEG), np.deg2rad(SIGMA_M_DEG)
+    phi = pred.xyzcal_mm[:, 2]
+
+    def bbox_args(rows):
+        return (expt.beam.s0, expt.goniometer.rotation_axis, pred.s1[rows], phi[rows],
+                sigma_b, sigma_m, expt.panel, expt.scan)
+
+    extent.compute_kabsch_bounding_boxes_device(*bbox_args(slice(0, 1024)), device=dev)
+    bb_dev, t_bb_dev = timed(
+        lambda: extent.compute_kabsch_bounding_boxes_device(*bbox_args(slice(None)), device=dev))
+    bb_host, t_bb_host = timed(lambda: extent.compute_kabsch_bounding_boxes(*bbox_args(slice(None))))
+    bbox_mismatch("sweep", bb_dev, bb_host, (pred.s1, phi))
+
+    # the integrator's steps after the boxes: min_zeta, the clip to the panel
+    axis = expt.goniometer.rotation_axis
+    zeta = extent.coordinate_systems(expt.beam.s0, axis / np.linalg.norm(axis), pred.s1).zeta
+    bboxes = bb_dev.copy()
+    w, h = expt.panel.image_size
+    for j, lim in ((0, w - 1), (1, w - 1), (2, h - 1), (3, h - 1)):
+        bboxes[:, j] = np.clip(bboxes[:, j], 0, lim)
+    depth = np.clip(bboxes[:, 5], 0, SWEEP_IMAGES) - np.clip(bboxes[:, 4], 0, SWEEP_IMAGES)
+    slices = int(np.maximum(depth, 0)[np.abs(zeta) >= 0.05].sum())
+    say(f"sweep bounding boxes: device {1e3 * t_bb_dev:.1f} ms ({n / t_bb_dev:.3e} "
+        f"reflections/s), host {1e3 * t_bb_host:.1f} ms ({n / t_bb_host:.3e} reflections/s) on "
+        f"{card}; equal bit for bit on all {n} rows; {slices} reflection-image slices")
+
+    # the device boxes' time split: the upload of s1 and phi, the call on
+    # inputs already on the card, and in that call the download of the
+    # (N, 6) float64 extents and their int64 cast on the host; the rest of
+    # the resident call is the card's arithmetic and its dispatch
+    (s1_d, phi_d), t_bb_up = timed(
+        lambda: (torch.as_tensor(pred.s1).to(dev, torch.float64),
+                 torch.as_tensor(phi).to(dev, torch.float64)))
+    bb_res, t_bb_res = timed(lambda: extent.compute_kabsch_bounding_boxes_device(
+        expt.beam.s0, expt.goniometer.rotation_axis, s1_d, phi_d, sigma_b, sigma_m, expt.panel,
+        expt.scan))
+    bbox_mismatch("sweep, resident inputs", bb_res, bb_host, (pred.s1, phi))
+    del s1_d, phi_d
+    ext_d = torch.zeros((n, 6), dtype=torch.float64, device=dev)
+    ext_h, t_bb_down = timed(lambda: ext_d.cpu().numpy())
+    _, t_bb_cast = timed(lambda: ext_h.astype(np.int64))
+    del ext_d, ext_h
+    say(f"sweep bounding-box split on {card}: upload of s1 and phi {1e3 * t_bb_up:.1f} ms; the "
+        f"call on inputs on the card {1e3 * t_bb_res:.1f} ms (equal bit for bit), of which the "
+        f"download of the extents {1e3 * t_bb_down:.1f} ms and their host cast "
+        f"{1e3 * t_bb_cast:.1f} ms, leaving {1e3 * (t_bb_res - t_bb_down - t_bb_cast):.1f} ms "
+        f"of arithmetic and dispatch")
+
+    (hist, over, labels), t_hist = timed(lambda: seeded_histograms(n, dev))
+    hist_host, over_host = hist.cpu().numpy(), over.cpu().numpy()
+    say(f"sweep histograms: {n} x 256 made on the card in {t_hist:.2f} s; "
+        f"{int(hist_host.sum() + over_host.sum())} background pixels; edge rows {labels}")
+
+    t_dev = {"bbox": t_bb_dev}
+    bg = {}
+    for model, name in (("tukey", "constant"), ("glm", "glm")):
+        estimate_background_device(hist_host[:1024], over_host[:1024], model, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, t_from_host = timed(
+            lambda: estimate_background_device(hist_host, over_host, model, device=dev))
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        _, t_resident = timed(lambda: estimate_background_device(hist, over, model))
+        want, t_host = timed(lambda: bg_host.estimate_background(hist_host[:k], over_host[:k],
+                                                                 model))
+        got_k = [v[:k].cpu().numpy() for v in got]
+        if not np.array_equal(got_k[2], want[2]):
+            rows = np.flatnonzero(got_k[2] != want[2])
+            fail(f"sweep {name} background: valid differs on {len(rows)} rows, first {rows[:5]}")
+        bad = differ({"mean": got_k[0], "wsum": got_k[1]}, {"mean": want[0], "wsum": want[1]},
+                     BG_TOL)
+        if bad:
+            fail(f"sweep {name} background: {bad} beyond 1e-12 of the host")
+        valid = got_k[2]
+        expect_invalid = {"overflow > 25%", "empty"} | (
+            {"< 10 pixels", "GLM_MAX_ITER"} if model == "glm" else set())
+        for row, label in enumerate(labels):
+            if label in expect_invalid and valid[row]:
+                fail(f"sweep {name} background: the '{label}' row {row} came out valid")
+        t_dev[name] = t_from_host
+        bg[name] = got
+        say(f"sweep {name} background on {card}: device {1e3 * t_from_host:.1f} ms from host "
+            f"arrays ({n / t_from_host:.3e} reflections/s; {1e3 * t_resident:.1f} ms on inputs "
+            f"already on the card; peak {peak_gb:.1f} GB), host {1e3 * t_host:.1f} ms at {k} rows "
+            f"({k / t_host:.3e} reflections/s); first {k} rows within 1e-12, valid exact "
+            f"({int(valid.sum())} valid)")
+
+    rng = np.random.default_rng(13)
+    fg_count = rng.integers(0, 120, n)
+    fg_count[rng.random(n) < 0.02] = 0
+    fg_sum = rng.poisson(500.0, n).astype(np.float64) * (fg_count > 0)
+    acc = types.SimpleNamespace(
+        fg_sum=fg_sum, fg_count=fg_count, bg_count=hist_host.sum(axis=1) + over_host,
+        sum_ix=fg_sum * pred.xyzcal_px[:, 0], sum_iy=fg_sum * pred.xyzcal_px[:, 1],
+        sum_iz=fg_sum * pred.xyzcal_px[:, 2])
+    kw = dict(bboxes=bboxes, s1=pred.s1, phi=phi, hkl=pred.hkl, zeta=zeta, scan=expt.scan,
+              beam=expt.beam, gonio=expt.goniometer, crystal=expt.crystal, sigma_m=sigma_m)
+    mean_d, wsum_d, valid_d = bg["glm"]
+
+    def first(rows):
+        """The finalisation's row-wise inputs cut to their first ``rows``."""
+        return types.SimpleNamespace(**{f: v[:rows] for f, v in vars(acc).items()}), {
+            key: v[:rows] if isinstance(v, np.ndarray) and len(v) == n else v
+            for key, v in kw.items()}
+
+    acc_w, kw_w = first(1024)
+    fin.finalize_device(acc=acc_w, bg_mean=mean_d[:1024], bg_wsum=wsum_d[:1024],
+                        bg_valid=valid_d[:1024], device=dev, **kw_w)
+    got, t_fin = timed(lambda: fin.finalize_device(acc=acc, bg_mean=mean_d, bg_wsum=wsum_d,
+                                                   bg_valid=valid_d, device=dev, **kw))
+    # the host finalisation on the same background (the device's, which
+    # the check above holds to the host's): an intensity is a difference
+    # that 1e-12 in a background mean can move far more than 1e-12
+    acc_k, kw_k = first(k)
+    bg_k = [v[:k].cpu().numpy() for v in (mean_d, wsum_d, valid_d)]
+    want, t_fin_host = timed(lambda: fin.finalize(acc=acc_k, bg_mean=bg_k[0], bg_wsum=bg_k[1],
+                                                  bg_valid=bg_k[2], **kw_k))
+    bad = differ({f: getattr(got, f)[:k] for f in FIN_FIELDS + ("valid",)},
+                 {f: getattr(want, f) for f in FIN_FIELDS + ("valid",)}, FIN_TOL)
+    n_fail_k = int(((fg_count[:k] > 0) & ~bg_k[2]).sum())
+    if bad or n_fail_k != want.n_background_failures:
+        fail(f"sweep finalize: {bad}; host rejected {want.n_background_failures}, "
+             f"expected {n_fail_k}")
+    t_dev["finalize"] = t_fin
+
+    # the finalisation's time split, as the boxes' above: the upload of its
+    # row inputs as finalize_device converts them, the call on inputs on the
+    # card, and the download of its output columns alone
+    names = ("fg_sum", "fg_count", "bg_count", "sum_ix", "sum_iy", "sum_iz")
+    rows_in = [getattr(acc, f) for f in names] + [kw[f] for f in ("bboxes", "s1", "phi", "hkl",
+                                                                  "zeta")]
+    res, t_fin_up = timed(lambda: [torch.as_tensor(a).to(dev, torch.float64) for a in rows_in])
+    acc_res = types.SimpleNamespace(**dict(zip(names, res[:6])))
+    kw_res = dict(kw, **dict(zip(("bboxes", "s1", "phi", "hkl", "zeta"), res[6:])))
+    got_res, t_fin_res = timed(lambda: fin.finalize_device(
+        acc=acc_res, bg_mean=mean_d, bg_wsum=wsum_d, bg_valid=valid_d, device=dev, **kw_res))
+    bad = differ({f: getattr(got_res, f) for f in FIN_FIELDS + ("valid",)},
+                 {f: getattr(got, f) for f in FIN_FIELDS + ("valid",)}, {"rtol": 0, "atol": 0})
+    if bad:
+        fail(f"sweep finalize on inputs on the card: {bad} differ from the call on host arrays")
+    del res, acc_res, kw_res, got_res
+    outs = [torch.zeros(n, dtype=torch.float64, device=dev) for _ in range(7)] + [
+        torch.zeros((n, 3), dtype=torch.float64, device=dev),
+        torch.zeros(n, dtype=torch.bool, device=dev)]
+    _, t_fin_down = timed(lambda: [v.cpu().numpy() for v in outs])
+    del outs
+    say(f"sweep finalize split on {card}: upload of the row inputs {1e3 * t_fin_up:.1f} ms; the "
+        f"call on inputs on the card {1e3 * t_fin_res:.1f} ms (equal bit for bit), of which the "
+        f"download of the columns {1e3 * t_fin_down:.1f} ms, leaving "
+        f"{1e3 * (t_fin_res - t_fin_down):.1f} ms of arithmetic and dispatch")
+    say(f"sweep finalize on {card}: device {1e3 * t_fin:.1f} ms at {n} rows "
+        f"({n / t_fin:.3e} reflections/s; {got.n_background_failures} backgrounds rejected), "
+        f"host {1e3 * t_fin_host:.1f} ms at {k} rows ({k / t_fin_host:.3e} reflections/s); "
+        f"first {k} rows within rtol 1e-12, valid exact")
+
+    est = slices / slices_per_s
+    device_s = t_dev["bbox"] + t_dev["glm"] + t_dev["finalize"]
+    say(f"sweep: device stages (boxes, GLM background from host arrays, finalize) {device_s:.3f} s "
+        f"against an estimated {est:.1f} s of integrate() for {slices} slices at phase 7's "
+        f"{slices_per_s:.0f} slices/s: {100 * device_s / est:.2f}% on {card}")
+    return expt, pred
+
+
+def phase_predictor_cli(dev, card: str, expt, pred) -> None:
+    """Phase 16 (c): ``baseline_predictor_torch`` (``predictor.run``) on the
+    sweep's experiment; its table must equal ``predict_rotation``'s rows on
+    the same card exactly."""
+    from ffs_tpu_torch.models.reflection_table import ReflectionTable
+    from ffs_tpu_torch.pipeline import predictor
+
+    try:
+        import h5py  # noqa: F401
+
+        held = None
+    except ImportError:  # without h5py, hold the table run() would write
+        held = {}
+    saved = ReflectionTable.write
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out = os.path.join(tmp, "sweep.expt"), os.path.join(tmp, "predicted.refl")
+        with open(path, "w") as f:
+            json.dump(expt.to_json_obj(), f)
+        if held is not None:
+            ReflectionTable.write = lambda self, p, *a, **kw: held.__setitem__(p, self)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc, seconds = timed(lambda: predictor.run(["-e", path, "--output", out]))
+        finally:
+            ReflectionTable.write = saved
+        table = held[out] if held is not None else ReflectionTable.read(out)
+    log = buf.getvalue()
+    count = f"Predicted {len(pred.hkl)} reflections"
+    if rc != 0 or count not in log:
+        fail(f"predictor: rc={rc}, log {log[-500:]!r}")
+    want = {"miller_index": pred.hkl.astype(np.int32), "panel": pred.panel,
+            "entering": pred.entering.astype(np.uint8), "s1": pred.s1,
+            "xyzcal.px": pred.xyzcal_px, "xyzcal.mm": pred.xyzcal_mm, "flags": pred.flags,
+            "id": np.zeros(len(pred.hkl), np.int64)}
+    bad = differ({name: table[name] for name in want}, want, dict(rtol=0.0, atol=0.0))
+    if bad or table.identifiers != [expt.identifier]:
+        fail(f"predictor: predicted.refl differs from predict_rotation: {bad}, identifiers "
+             f"{table.identifiers}")
+    where = "held in memory: no h5py on this machine" if held is not None else "written and read back"
+    say(f"baseline_predictor_torch: {count.lower()} in {seconds:.1f} s on {card}; "
+        f"predicted.refl ({where}) equals predict_rotation exactly")
+
+
 def main() -> int:
     # the smoke proves the port runs on its own: any import of JAX, of the
     # JAX package or of its benchmark fails
@@ -1851,6 +2272,12 @@ def main() -> int:
 
     # phase 15: the PIA's per-line indexing step on the spotfinder's pipe lines
     phase_pia_hook(dev, card)
+
+    # phase 16: the integrator's --bg-device path, at phase 7's size and at
+    # the whole sweep's, and the predictor CLI on the sweep
+    phase_bg_device(dev, card, col, integ_run.acc)
+    sweep_expt, sweep_pred = phase_bg_device_sweep(dev, card, col.slices / kabsch_s)
+    phase_predictor_cli(dev, card, sweep_expt, sweep_pred)
 
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",

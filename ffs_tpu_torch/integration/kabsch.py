@@ -34,6 +34,7 @@ import torch
 
 from ..ops.dispersion import widen_pixels
 from ..ops.window_gather import window_gather, window_gather_planes
+from ..utils.exact import dot3, norm3, quotient
 from .background import NUM_BG_BINS
 
 
@@ -123,24 +124,6 @@ def format_shoebox_fill_histogram(
         f"{100.0 * total_px / (total_slices * slot_px):.0f}% window utilisation"
     )
     return out
-
-
-def _norm3(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over a last axis of 3, summed in index order (the
-    order of the JAX package's reduction)."""
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
-
-
-def _div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """``x / s`` as a true division.  Dividing a CUDA tensor by a Python
-    scalar multiplies by the scalar's reciprocal instead, which can round
-    differently from the division the JAX package and the CPU perform."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
-
-
-def _dot3(v: torch.Tensor, u) -> torch.Tensor:
-    """``v @ u`` for a last axis of 3, as products summed in index order."""
-    return v[..., 0] * float(u[0]) + v[..., 1] * float(u[1]) + v[..., 2] * float(u[2])
 
 
 class KabschIntegrator:
@@ -262,15 +245,15 @@ class KabschIntegrator:
         x2 = cy * self._py
         if self._parallax:
             lab0 = origin + x1[..., None] * fast + x2[..., None] * slow
-            s1_hat = lab0 / _norm3(lab0)[..., None]
-            cos_t = _dot3(s1_hat, self._normal)
+            s1_hat = lab0 / norm3(lab0)[..., None]
+            cos_t = dot3(s1_hat, self._normal)
             o = (1.0 / self._mu) - (self._t0 / cos_t + 1.0 / self._mu) * torch.exp(
                 -self._mu * self._t0 / cos_t
             )
-            x1 = x1 - _dot3(s1_hat, self._fast) * o
-            x2 = x2 - _dot3(s1_hat, self._slow) * o
+            x1 = x1 - dot3(s1_hat, self._fast) * o
+            x2 = x2 - dot3(s1_hat, self._slow) * o
         lab = origin + x1[..., None] * fast + x2[..., None] * slow
-        return _div(lab / _norm3(lab)[..., None], self._wl)
+        return quotient(lab / norm3(lab)[..., None], self._wl)
 
     def corner_field_f32(self) -> torch.Tensor:
         """(6, Hc, Wc) float32 hi/lo split of :meth:`corner_field`, padded so
@@ -366,7 +349,7 @@ class KabschIntegrator:
         delta = (fieldw[:, 0:3] - s1_hi[:, :, None, None]) + (
             fieldw[:, 3:6] - s1_lo[:, :, None, None]
         )  # (A, 3, bh+8, 128) float32
-        s1_len = _norm3(s1_c)
+        s1_len = norm3(s1_c)
         e1n = (e1 / s1_len[:, None]).to(torch.float32)
         e2n = (e2 / s1_len[:, None]).to(torch.float32)
 
@@ -379,7 +362,7 @@ class KabschIntegrator:
 
         eps1 = project(e1n)
         eps2 = project(e2n)
-        e12 = _div(eps1 * eps1 + eps2 * eps2, float(np.float32(self._delta_b**2)))
+        e12 = quotient(eps1 * eps1 + eps2 * eps2, float(np.float32(self._delta_b**2)))
         return e12[:, : self.box_h + 1, :].contiguous()  # corner rows 0..bh
 
     def _block_step_impl(
@@ -434,7 +417,7 @@ class KabschIntegrator:
 
         def t_of(phi_eval):
             eps3 = zeta * (phi_eval - phi_c)
-            return (1.0 - _div(eps3 * eps3, dm2)).to(torch.float32)
+            return (1.0 - quotient(eps3 * eps3, dm2)).to(torch.float32)
 
         # outputs are summed over the block's frames on the device: every
         # quantity is an exact integer or half-integer in float64 (< 2^53),

@@ -7,13 +7,15 @@ estimation unless given; prediction if the table is not predicted (on the
 device, :mod:`..prediction.rotation`); Kabsch bounding boxes; the blocked
 foreground/background classification on the device (:mod:`..integration.
 kabsch`, whose window gathers are CUDA kernels on a GPU); background
-reduction over the bounded histograms and finalisation on the host.
+reduction over the bounded histograms and finalisation on the host, or, with
+``--bg-device``, the bounding boxes, the background and the finalisation on
+the device too (:func:`..integration.extent.
+compute_kabsch_bounding_boxes_device`, :mod:`..integration.
+background_device`, :func:`..integration.finalize.finalize_device`).
 
 :func:`integrate_experiment` is the core: it takes the loaded experiment,
 the table's columns and a frame reader and returns the output columns, so
 that it runs without the h5py file I/O that :func:`run` wraps around it.
-Not ported yet: ``--bg-device`` (the device background, bounding boxes and
-finalisation) exits non-zero.
 
 Console script: ``integrator_torch``.
 """
@@ -21,6 +23,7 @@ Console script: ``integrator_torch``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -28,13 +31,6 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
-
-BG_DEVICE_NOT_PORTED = (
-    "Error: --bg-device is not ported to the PyTorch integrator yet (ROADMAP "
-    "Queue 1 item 11: the device background, bounding boxes and "
-    "finalisation); run without it"
-)
-
 
 class _StreamingReader:
     """Availability-waiting, prefetching facade over a frame reader.
@@ -112,6 +108,7 @@ def integrate_experiment(
     min_bbox_depth: int = 6,
     algorithm: str = "ellipsoid",
     background: str = "constant",
+    bg_device: bool = False,
     min_zeta: float = 0.05,
     sv=None,
     threads: int = 0,
@@ -123,7 +120,9 @@ def integrate_experiment(
     frames of ``reader`` for the loaded experiment ``expt`` on ``device``.
 
     Both ``sigma_b`` and ``sigma_m`` (radians) or neither: the sigmas are
-    estimated from the table unless both are given.  ``sv`` holds the
+    estimated from the table unless both are given.  ``bg_device`` runs
+    the bounding boxes, the background (but for ``dials``) and the
+    finalisation on ``device`` as well.  ``sv`` holds the
     scan-varying model states for prediction (or None); ``mark(stage)`` is
     called at the end of the stages the CLI's ``--profile`` reports
     (sigma+predict, bbox+setup, kabsch, background).  Prints the CLI's log
@@ -132,6 +131,7 @@ def integrate_experiment(
     from ..integration import extent as extent_mod
     from ..integration import finalize as fin_mod
     from ..integration import kabsch as kabsch_mod
+    from ..integration.background_device import estimate_background_device
     from ..integration.sigma import estimate_sigmas
     from ..models.reflection_table import INTEGRATED_SUM, PREDICTED
     from ..prediction.rotation import predict_rotation
@@ -169,10 +169,12 @@ def integrate_experiment(
     mark("sigma+predict")
 
     # bounding boxes + coordinate systems + min_zeta skip
-    bboxes = extent_mod.compute_kabsch_bounding_boxes(
-        expt.beam.s0, expt.goniometer.rotation_axis, s1, phi, sigma_b, sigma_m,
-        expt.panel, expt.scan,
-    )
+    bbox_args = (expt.beam.s0, expt.goniometer.rotation_axis, s1, phi, sigma_b, sigma_m,
+                 expt.panel, expt.scan)
+    if bg_device:
+        bboxes = extent_mod.compute_kabsch_bounding_boxes_device(*bbox_args, device=device)
+    else:
+        bboxes = extent_mod.compute_kabsch_bounding_boxes(*bbox_args)
     cs = extent_mod.coordinate_systems(
         expt.beam.s0,
         expt.goniometer.rotation_axis / np.linalg.norm(expt.goniometer.rotation_axis),
@@ -233,9 +235,25 @@ def integrate_experiment(
 
     fin_mod.check_overflow(acc.bg_count, acc.bg_overflow)
     bg_model = {"constant": "tukey", "glm": "glm", "dials": "dials"}[background]
-    bg_mean, bg_wsum, bg_valid = bg_mod.estimate_background(acc.bg_hist, acc.bg_overflow, bg_model)
+    if bg_device and bg_model == "dials":
+        # the dials cross-check variant is host-only by design (it exists
+        # to check the device and shared reductions independently)
+        print("note: --background dials runs on host; ignoring --bg-device for the background stage")
+    if bg_device and bg_model != "dials":
+        # the whole reflection batch as (N, bins) tensor operations
+        # (reference: integrator/background.cu:29-99)
+        bg_mean, bg_wsum, bg_valid = estimate_background_device(
+            acc.bg_hist, acc.bg_overflow, bg_model, device=device
+        )
+    else:
+        bg_mean, bg_wsum, bg_valid = bg_mod.estimate_background(
+            acc.bg_hist, acc.bg_overflow, bg_model
+        )
     mark("background")
-    result = fin_mod.finalize(
+    finalize = fin_mod.finalize
+    if bg_device:
+        finalize = functools.partial(fin_mod.finalize_device, device=device)
+    result = finalize(
         acc=acc,
         bg_mean=bg_mean,
         bg_wsum=bg_wsum,
@@ -329,8 +347,9 @@ def run(argv=None) -> int:
     p.add_argument(
         "--bg-device",
         action="store_true",
-        help="Run the background reduction and finalisation on the device "
-        "(not ported to the PyTorch integrator yet: exits with an error)",
+        help="Run the bounding boxes, the background reduction and the "
+        "finalisation on the device as well (reference GPU reduction: "
+        "background.cu:29-99)",
     )
     p.add_argument("--min_zeta", type=float, default=0.05)
     p.add_argument("--output", default="integrated.refl")
@@ -350,10 +369,6 @@ def run(argv=None) -> int:
         return 0
     if not args.reflection or not args.experiment:
         p.error("the following arguments are required: --reflection/-r, --experiment/-e")
-    if args.bg_device:
-        print(BG_DEVICE_NOT_PORTED)
-        return 2
-
     device = torchinit.select_device(args.device)
     print(f"Device: {device} ({torchinit.device_name(device)})")
 
@@ -399,6 +414,7 @@ def run(argv=None) -> int:
         min_bbox_depth=args.min_bbox_depth,
         algorithm=args.algorithm,
         background=args.background,
+        bg_device=args.bg_device,
         min_zeta=args.min_zeta,
         sv=sv,
         threads=args.threads,

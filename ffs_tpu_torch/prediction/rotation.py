@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.reflection_table import PREDICTED
+from ..utils.exact import sum3
 
 
 @dataclass
@@ -66,11 +67,6 @@ def hkl_grid(a_matrix: np.ndarray, dmin: float, group_ops=None) -> np.ndarray:
     return grid
 
 
-def _sum3(v: torch.Tensor) -> torch.Tensor:
-    """Sum over a last axis of 3 in index order, as NumPy reduces it."""
-    return v[:, 0] + v[:, 1] + v[:, 2]
-
-
 def _rays_for_image(h, a1, a2, s0_1, s0_2, dmin, phi_beg, d_osc):
     """Torch form of the JAX package's ``_rays_for_image``, the vectorised
     predict_ray_monochromatic_sv (ray_predictors.cc:115-201), in float64.
@@ -94,14 +90,14 @@ def _rays_for_image(h, a1, a2, s0_1, s0_2, dmin, phi_beg, d_osc):
 
     n01 = float(np.linalg.norm(s0_1))
     n02 = float(np.linalg.norm(s0_2))
-    r1_from_es = torch.sqrt(_sum3(s0pr1 * s0pr1)) - n01
-    r2_from_es = torch.sqrt(_sum3(s0pr2 * s0pr2)) - n02
+    r1_from_es = torch.sqrt(sum3(s0pr1 * s0pr1)) - n01
+    r2_from_es = torch.sqrt(sum3(s0pr2 * s0pr2)) - n02
     starts_outside = r1_from_es >= 0.0
     ends_outside = r2_from_es >= 0.0
-    r1_sq = _sum3(r1 * r1)
+    r1_sq = sum3(r1 * r1)
     ok = (starts_outside != ends_outside) & (r1_sq <= 1.0 / (dmin * dmin))
 
-    a = _sum3(dr * dr)
+    a = sum3(dr * dr)
     a_safe = torch.where(a == 0, torch.ones_like(a), a)
     nan = torch.full_like(a, float("nan"))
 
@@ -117,12 +113,12 @@ def _rays_for_image(h, a1, a2, s0_1, s0_2, dmin, phi_beg, d_osc):
         return ok_d & (lo_ok | hi_ok), alpha
 
     ok1, alpha1 = root_in_01(
-        _sum3(s0pr1 * dr),
+        sum3(s0pr1 * dr),
         r1_sq + 2 * (r1 @ s0_1t),
     )
     ok2, alpha2 = root_in_01(
-        -_sum3(s0pr2 * dr),
-        _sum3(r2 * r2) + 2 * (r2 @ s0_2t),
+        -sum3(s0pr2 * dr),
+        sum3(r2 * r2) + 2 * (r2 @ s0_2t),
     )
     ok = ok & ok1 & ok2 & (a > 0)
 

@@ -5,7 +5,7 @@ integrator via CUDAArgumentParser, the baseline integrator directly) gets
 two behaviours beyond its own flags (reference: src/ffs/arg_parser.cc:36-89):
 
 * ``-v``/``--verbose`` — verbose logging output.  Our logging threshold is
-  the ``LOG_LEVEL`` env consumed by :func:`ffs_tpu.utils.logging.setup_logging`,
+  the ``LOG_LEVEL`` env consumed by :func:`.logging.setup_logging`,
   so the flag maps to forcing ``LOG_LEVEL=debug`` for the process (and any
   child it spawns).
 * a ``common.args`` file in the working directory — each non-empty line is

@@ -50,3 +50,15 @@ def list_devices() -> list[str]:
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU"
+
+
+def resolve_device(*arrays, device: torch.device | None = None) -> torch.device:
+    """``device`` when given, else the device of the first tensor among
+    ``arrays``, else :func:`select_device` (the CUDA device, or the CPU
+    under FFS_TORCH_DEVICE=cpu)."""
+    if device is not None:
+        return torch.device(device)
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return select_device()

@@ -6,8 +6,9 @@ JAX CLI (``ffs_tpu/pipeline/integrator.py`` run()) integrate the same
 synthetic collection (the ``integration_experiment`` of
 tests/test_integration.py: a 240x260 panel, 12 images); every column of
 ``integrated.refl`` must agree, integers exactly and floats within 1e-12
-relative.  The CLI wrapper, ``--bg-device`` and device selection are
-checked on top.
+relative.  ``--bg-device`` runs against the JAX CLI's device functions
+(bounding boxes, background, finalisation) in the same sequence.  The CLI
+wrapper and device selection are checked on top.
 """
 
 import dataclasses
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from ffs_tpu.integration import background as bg_mod
+from ffs_tpu.integration import background_jax as bg_jax
 from ffs_tpu.integration import extent as extent_mod
 from ffs_tpu.integration import finalize as fin_mod
 from ffs_tpu.integration import kabsch as kabsch_mod
@@ -64,11 +66,12 @@ def collection():
     return types.SimpleNamespace(expt=expt, texpt=texpt, reader=reader, table=table, P=P)
 
 
-def jax_columns(expt, table, reader, algorithm, background):
+def jax_accumulate(expt, table, reader, algorithm, bg_device=False):
     """The JAX CLI's steps after loading, with its functions, in its order
     (``ffs_tpu/pipeline/integrator.py``: predict, bboxes, min_zeta, clip,
-    KabschIntegrator, background, finalize, columns), predicting with the
-    host float64 search where the CLI takes its device default."""
+    KabschIntegrator), predicting with the host float64 search where the
+    CLI takes its device default; ``bg_device`` takes the CLI's
+    ``--bg-device`` bounding boxes."""
     flags = table.get("flags")
     if flags is not None and ((flags & PREDICTED) != 0).any():
         s1, xyzcal_mm, hkl = table["s1"], table["xyzcal.mm"], table["miller_index"]
@@ -80,7 +83,9 @@ def jax_columns(expt, table, reader, algorithm, background):
         ids = np.zeros(len(s1), np.int64)
     phi = xyzcal_mm[:, 2]
     n = len(s1)
-    bboxes = extent_mod.compute_kabsch_bounding_boxes(
+    bbox_fn = (extent_mod.compute_kabsch_bounding_boxes_device if bg_device
+               else extent_mod.compute_kabsch_bounding_boxes)
+    bboxes = bbox_fn(
         expt.beam.s0, expt.goniometer.rotation_axis, s1, phi, SIGMA_B, SIGMA_M, expt.panel,
         expt.scan,
     )
@@ -99,31 +104,51 @@ def jax_columns(expt, table, reader, algorithm, background):
     )
     acc = kabsch_mod.Accumulators.zeros(n)
     integ.integrate(reader, range(0, reader.get_number_of_images()), acc)
+    return types.SimpleNamespace(expt=expt, s1=s1, xyzcal_mm=xyzcal_mm, hkl=hkl, ids=ids,
+                                 phi=phi, bboxes=bboxes, zeta=cs.zeta, acc=acc)
+
+
+def jax_finish(run, background, bg_device=False):
+    """The JAX CLI's steps after the Kabsch step (background, finalize,
+    columns) on a :func:`jax_accumulate` run."""
+    expt, acc = run.expt, run.acc
     fin_mod.check_overflow(acc.bg_count, acc.bg_overflow)
     model = {"constant": "tukey", "glm": "glm", "dials": "dials"}[background]
-    bg_mean, bg_wsum, bg_valid = bg_mod.estimate_background(acc.bg_hist, acc.bg_overflow, model)
-    r = fin_mod.finalize(
-        acc=acc, bg_mean=bg_mean, bg_wsum=bg_wsum, bg_valid=bg_valid, bboxes=bboxes, s1=s1,
-        phi=phi, hkl=hkl, zeta=cs.zeta, scan=expt.scan, beam=expt.beam,
+    if bg_device and model != "dials":
+        bg_mean, bg_wsum, bg_valid = (
+            np.asarray(v) for v in bg_jax.estimate_background_device(
+                acc.bg_hist, acc.bg_overflow, model))
+    else:
+        bg_mean, bg_wsum, bg_valid = bg_mod.estimate_background(
+            acc.bg_hist, acc.bg_overflow, model)
+    finalize = fin_mod.finalize_device if bg_device else fin_mod.finalize
+    r = finalize(
+        acc=acc, bg_mean=bg_mean, bg_wsum=bg_wsum, bg_valid=bg_valid, bboxes=run.bboxes,
+        s1=run.s1, phi=run.phi, hkl=run.hkl, zeta=run.zeta, scan=expt.scan, beam=expt.beam,
         gonio=expt.goniometer, crystal=expt.crystal, sigma_m=SIGMA_M,
     )
     return {
         "intensity.sum.value": r.intensity,
         "intensity.sum.variance": np.where(r.variance < 0, 0.0, r.variance),
         "partiality": r.partiality,
-        "miller_index": hkl.astype(np.int32),
+        "miller_index": run.hkl.astype(np.int32),
         "lp": r.lp,
         "d": r.d,
-        "xyzcal.mm": xyzcal_mm,
+        "xyzcal.mm": run.xyzcal_mm,
         "xyzobs.px.value": r.xyzobs_px,
-        "s1": s1,
-        "id": np.asarray(ids, np.int64),
+        "s1": run.s1,
+        "id": np.asarray(run.ids, np.int64),
         "num_pixels.background": acc.bg_count,
         "num_pixels.foreground": acc.fg_count,
         "background.sum.value": r.background_sum,
         "background.mean": r.background_mean,
         "flags": np.where(r.valid, np.uint64(INTEGRATED_SUM), np.uint64(0)).astype(np.uint64),
     }
+
+
+def jax_columns(expt, table, reader, algorithm, background):
+    """The JAX CLI's whole sequence after loading (host path)."""
+    return jax_finish(jax_accumulate(expt, table, reader, algorithm), background)
 
 
 def assert_columns_equal(got: dict, want: dict):
@@ -158,16 +183,14 @@ def test_core_matches_jax_sequence(collection, algorithm, background, predicted)
         assert np.median(ratio) > 0.7
 
 
-def test_cli_writes_the_core_columns(collection, tmp_path, monkeypatch, capsys):
-    """``run()`` on NeXus frames: the JAX CLI's log lines and --profile
-    stages, and an ``integrated.refl`` holding the core's columns."""
+def _write_cli_inputs(c):
+    """The CLI's input files in the working directory (NeXus frames,
+    ``indexed.expt``, ``predicted.refl``); returns a reader of the frames
+    as written."""
     from ffs_tpu_torch.models.reflection_table import ReflectionTable
 
     from .util import write_nexus
 
-    c = collection
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("FFS_TORCH_DEVICE", "cpu")
     frames = c.reader.frames.astype(np.uint16)
     write_nexus("images.nxs", frames, wavelength=1.0, distance=0.12, pixel_size=0.3e-3,
                 beam_center=(120.0, 130.0), oscillation=(0.0, 1.0), mask=c.reader._mask)
@@ -176,18 +199,6 @@ def test_cli_writes_the_core_columns(collection, tmp_path, monkeypatch, capsys):
     for name, col in c.table.items():
         table[name] = col
     table.write("predicted.refl")
-    rc = tint.run(["-r", "predicted.refl", "-e", "indexed.expt", "-i", "images.nxs",
-                   "--sigma_b", repr(float(SIGMA_B)), "--sigma_m", repr(float(SIGMA_M)), "--profile"])
-    log = capsys.readouterr().out
-    assert rc == 0, log
-    for line in ("Using sigma_b=", "Integrating ", "Summation integration complete",
-                 "Shoebox fill over", "Saved integrated reflections to integrated.refl",
-                 "Stage breakdown:"):
-        assert line in log
-    for stage in ("load", "sigma+predict", "bbox+setup", "kabsch", "background",
-                  "finalize+write"):
-        assert f"{stage:>14s}:" in log
-    out = ReflectionTable.read("integrated.refl")
 
     class _Frames:
         def get_image(self, n):
@@ -199,18 +210,86 @@ def test_cli_writes_the_core_columns(collection, tmp_path, monkeypatch, capsys):
         def get_number_of_images(self):
             return len(frames)
 
+    return _Frames()
+
+
+CLI_ARGS = ["-r", "predicted.refl", "-e", "indexed.expt", "-i", "images.nxs",
+            "--sigma_b", repr(float(SIGMA_B)), "--sigma_m", repr(float(SIGMA_M)), "--profile"]
+
+
+def test_cli_writes_the_core_columns(collection, tmp_path, monkeypatch, capsys):
+    """``run()`` on NeXus frames: the JAX CLI's log lines and --profile
+    stages, and an ``integrated.refl`` holding the core's columns."""
+    from ffs_tpu_torch.models.reflection_table import ReflectionTable
+
+    c = collection
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("FFS_TORCH_DEVICE", "cpu")
+    frames = _write_cli_inputs(c)
+    rc = tint.run(CLI_ARGS)
+    log = capsys.readouterr().out
+    assert rc == 0, log
+    for line in ("Using sigma_b=", "Integrating ", "Summation integration complete",
+                 "Shoebox fill over", "Saved integrated reflections to integrated.refl",
+                 "Stage breakdown:"):
+        assert line in log
+    for stage in ("load", "sigma+predict", "bbox+setup", "kabsch", "background",
+                  "finalize+write"):
+        assert f"{stage:>14s}:" in log
+    out = ReflectionTable.read("integrated.refl")
     want = tint.integrate_experiment(
-        c.texpt, c.table, _Frames(), device=torch.device("cpu"), sigma_b=SIGMA_B,
+        c.texpt, c.table, frames, device=torch.device("cpu"), sigma_b=SIGMA_B,
         sigma_m=SIGMA_M,
     ).columns
     assert_columns_equal({k: out[k] for k in want}, want)
 
 
-def test_bg_device_exits_with_the_roadmap_message(capsys):
-    rc = tint.run(["-r", "x.refl", "-e", "x.expt", "--sample", "--bg-device"])
-    assert rc != 0
-    out = capsys.readouterr().out
-    assert "--bg-device" in out and "ROADMAP" in out and "item 11" in out
+def test_cli_bg_device_runs(collection, tmp_path, monkeypatch, capsys):
+    """``--bg-device`` runs through ``run()`` (it exited 2 before the port
+    had it): the same --profile stages, and the device path's columns."""
+    from ffs_tpu_torch.models.reflection_table import ReflectionTable
+
+    c = collection
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("FFS_TORCH_DEVICE", "cpu")
+    frames = _write_cli_inputs(c)
+    rc = tint.run(CLI_ARGS + ["--bg-device", "--background", "glm"])
+    log = capsys.readouterr().out
+    assert rc == 0, log
+    for stage in ("sigma+predict", "bbox+setup", "kabsch", "background", "finalize+write"):
+        assert f"{stage:>14s}:" in log
+    out = ReflectionTable.read("integrated.refl")
+    want = tint.integrate_experiment(
+        c.texpt, c.table, frames, device=torch.device("cpu"), sigma_b=SIGMA_B,
+        sigma_m=SIGMA_M, background="glm", bg_device=True,
+    ).columns
+    assert_columns_equal({k: out[k] for k in want}, want)
+
+
+@pytest.fixture(scope="module")
+def jax_bg_device_run(collection):
+    c = collection
+    return jax_accumulate(c.expt, c.table, c.reader, "ellipsoid", bg_device=True)
+
+
+@pytest.mark.parametrize("background", ["constant", "glm", "dials"])
+def test_bg_device_matches_jax_sequence(collection, jax_bg_device_run, background, capsys):
+    """``--bg-device``: device bounding boxes, background and finalisation
+    against the JAX CLI's device functions (one Kabsch run of theirs serves
+    the three cases); ``dials`` keeps the host background with the JAX
+    CLI's note."""
+    c = collection
+    want = jax_finish(jax_bg_device_run, background, bg_device=True)
+    capsys.readouterr()
+    out = tint.integrate_experiment(
+        c.texpt, c.table, c.reader, device=torch.device("cpu"), sigma_b=SIGMA_B,
+        sigma_m=SIGMA_M, background=background, bg_device=True,
+    )
+    log = capsys.readouterr().out
+    assert ("note: --background dials runs on host" in log) == (background == "dials")
+    assert_columns_equal(out.columns, want)
+    valid = (out.columns["flags"] & np.uint64(INTEGRATED_SUM)) != 0
+    assert valid.mean() > 0.9
 
 
 def test_needs_a_device_or_the_cpu_flag(collection, monkeypatch):
