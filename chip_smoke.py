@@ -104,10 +104,36 @@ import).  Phases, each of which fails the run:
    predictions on the card): device bounding boxes against the host's on
    every row, seeded histograms (with edge rows) and accumulators through
    the device backgrounds and finalisation at that N against the host
-   functions on the first HOST_ROWS rows, both timed, and the device
-   stages' share of an estimated ``integrate()`` of the sweep; (c)
-   ``baseline_predictor_torch`` (``predictor.run``) on the sweep's
-   experiment, its table equal to ``predict_rotation``'s exactly.
+   functions on the first HOST_ROWS rows (the GLM on the first
+   GLM_HOST_ROWS: the edge rows and the Poisson rows after them), both
+   timed, and the device stages' share of an estimated ``integrate()`` of
+   the sweep; (c) ``baseline_predictor_torch`` (``predictor.run``) on a
+   360-image scan of the sweep's configuration, its table equal to
+   ``predict_rotation``'s exactly;
+17. multi-device — ``ffs_tpu_torch.parallel`` over ``min(cards, 4)``
+   ranks, NCCL with one rank a card (on one card: 2 ranks share cuda:0 over
+   gloo, the collectives through host memory), each rank a process of
+   ``parallel.launch.run_ranks``: (a) ``sharded_spotfind_counts``,
+   ``sharded_packed_pipeline`` and ``sharded_packed_pipeline_planes`` on
+   the stage tool's B = 8 Eiger 16M batch and its bitshuffle planes; (b)
+   ``sharded_packed_sp_pipeline``, plain and extended, and
+   ``halo_sharded_dispersion`` on a seeded Jungfrau 4M frame with spots
+   across every shard boundary; (c) ``sharded_kabsch_block_step`` on the
+   first chunk of phase 7's collection (A = 2048, F = 4), each rank setting
+   up its own rows (``sharded_chunk_setup``); (d)
+   ``sharded_rotation_compact`` and the host 3D merge on the batch with a
+   spot across every rank-boundary frame pair.  Each output equals the
+   single-device path on cuda:0 bit for bit (the spot tables column by
+   column, the eight Kabsch outputs, the Spots3D), on every rank; prints
+   world, backend, each part's ms, the merge rounds, one halo exchange's
+   ms and the DP frames/s beside world 1's; each rank's kernel launches
+   (counted from 0 in that rank just before its part) must be above 0 for
+   all five kernels.  They stand in the kernels line as ``multi_launches``
+   (one count a rank), apart from ``launches``, the main paths' counts.
+   ``python3 chip_smoke.py --multi-only`` runs phases 1, 2 and 17 alone
+   (phase 7's integrator set up without its checks), for a machine with
+   several cards, and ends with a line of its own: no kernels line and no
+   ``{"ok": ...}`` line.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -116,6 +142,7 @@ any failure.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import io
@@ -1170,14 +1197,20 @@ def phase_batch_times(dev, sample_planes: np.ndarray) -> None:
 
 
 def tensors_equal(a, b) -> bool:
-    """Equal values, dtype and shape, for tensors, CompactPixels and spot
-    tables alike (a NamedTuple compares field by field)."""
+    """Equal values, dtype and shape, for tensors (on any devices), numpy
+    arrays, CompactPixels and spot tables alike (a NamedTuple compares field
+    by field, tuples and lists item by item, anything else by ``==``)."""
     import torch
 
-    if isinstance(a, tuple):
+    if isinstance(a, (tuple, list)):
         return type(a) is type(b) and len(a) == len(b) and all(
             tensors_equal(x, y) for x, y in zip(a, b))
-    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a, b.to(a.device))))
+    return a == b
 
 
 def phase_rowcum(dev):
@@ -1769,10 +1802,16 @@ def phase_pia_hook(dev, card: str) -> None:
 # against the host path; (b) the whole sweep that phase 7 cuts to 40 images
 # (~1.63M predictions): device bounding boxes, backgrounds and finalisation
 # at that N, the host functions on its first HOST_ROWS rows (the host GLM
-# over every row would take minutes); (c) baseline_predictor_torch on the
-# sweep's experiment
+# on its first GLM_HOST_ROWS: over every row it would take minutes); (c)
+# baseline_predictor_torch on a PREDICTOR_IMAGES-image scan of the sweep's
+# configuration
 SWEEP_IMAGES = 3600
 HOST_ROWS = 65536
+# the host GLM reference, ~1.7 ms a row, runs on the first GLM_HOST_ROWS:
+# the edge rows and the Poisson rows after them (rows are independent)
+GLM_HOST_ROWS = 4096
+# phase 16c: the predictor CLI on a scan of the sweep's configuration
+PREDICTOR_IMAGES = 360
 # the JAX package's own tolerances: its device background against NumPy
 # (tests/test_integrator_cli.py), its device finalisation against NumPy
 # (tests/test_integration.py)
@@ -1947,7 +1986,7 @@ def seeded_histograms(n: int, dev, seed: int = 11):
 
 def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
     """Phase 16 (b): the device stages of ``--bg-device`` at collection
-    scale; returns (experiment, predictions) for (c)."""
+    scale."""
     import types
 
     import torch
@@ -2028,9 +2067,10 @@ def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
             lambda: estimate_background_device(hist_host, over_host, model, device=dev))
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         _, t_resident = timed(lambda: estimate_background_device(hist, over, model))
-        want, t_host = timed(lambda: bg_host.estimate_background(hist_host[:k], over_host[:k],
-                                                                 model))
-        got_k = [v[:k].cpu().numpy() for v in got]
+        k_ref = HOST_ROWS if model == "tukey" else GLM_HOST_ROWS
+        want, t_host = timed(lambda: bg_host.estimate_background(
+            hist_host[:k_ref], over_host[:k_ref], model))
+        got_k = [v[:k_ref].cpu().numpy() for v in got]
         if not np.array_equal(got_k[2], want[2]):
             rows = np.flatnonzero(got_k[2] != want[2])
             fail(f"sweep {name} background: valid differs on {len(rows)} rows, first {rows[:5]}")
@@ -2048,8 +2088,8 @@ def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
         bg[name] = got
         say(f"sweep {name} background on {card}: device {1e3 * t_from_host:.1f} ms from host "
             f"arrays ({n / t_from_host:.3e} reflections/s; {1e3 * t_resident:.1f} ms on inputs "
-            f"already on the card; peak {peak_gb:.1f} GB), host {1e3 * t_host:.1f} ms at {k} rows "
-            f"({k / t_host:.3e} reflections/s); first {k} rows within 1e-12, valid exact "
+            f"already on the card; peak {peak_gb:.1f} GB), host {1e3 * t_host:.1f} ms at {k_ref} "
+            f"rows ({k_ref / t_host:.3e} reflections/s); first {k_ref} rows within 1e-12, valid exact "
             f"({int(valid.sum())} valid)")
 
     rng = np.random.default_rng(13)
@@ -2125,15 +2165,18 @@ def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
     say(f"sweep: device stages (boxes, GLM background from host arrays, finalize) {device_s:.3f} s "
         f"against an estimated {est:.1f} s of integrate() for {slices} slices at phase 7's "
         f"{slices_per_s:.0f} slices/s: {100 * device_s / est:.2f}% on {card}")
-    return expt, pred
 
 
-def phase_predictor_cli(dev, card: str, expt, pred) -> None:
-    """Phase 16 (c): ``baseline_predictor_torch`` (``predictor.run``) on the
-    sweep's experiment; its table must equal ``predict_rotation``'s rows on
-    the same card exactly."""
+def phase_predictor_cli(dev, card: str) -> None:
+    """Phase 16 (c): ``baseline_predictor_torch`` (``predictor.run``) on a
+    PREDICTOR_IMAGES-image scan of the sweep's configuration; its table
+    must equal ``predict_rotation``'s rows on the same card exactly."""
     from ffs_tpu_torch.models.reflection_table import ReflectionTable
     from ffs_tpu_torch.pipeline import predictor
+    from ffs_tpu_torch.prediction.rotation import predict_rotation
+
+    expt = eiger_experiment(n_images=PREDICTOR_IMAGES)
+    pred, t_pred = timed(lambda: predict_rotation(expt, device=dev))
 
     try:
         import h5py  # noqa: F401
@@ -2168,11 +2211,381 @@ def phase_predictor_cli(dev, card: str, expt, pred) -> None:
         fail(f"predictor: predicted.refl differs from predict_rotation: {bad}, identifiers "
              f"{table.identifiers}")
     where = "held in memory: no h5py on this machine" if held is not None else "written and read back"
-    say(f"baseline_predictor_torch: {count.lower()} in {seconds:.1f} s on {card}; "
-        f"predicted.refl ({where}) equals predict_rotation exactly")
+    say(f"baseline_predictor_torch on {PREDICTOR_IMAGES} images: {count.lower()} in "
+        f"{seconds:.1f} s (predict_rotation {t_pred:.1f} s) on {card}; predicted.refl ({where}) "
+        f"equals predict_rotation exactly")
+
+
+# phase 17: multi-device.  (a) DP: the stage tool's B = 8 Eiger 16M batch
+# (seed 12) as frames and as bitshuffle planes from the port's codec; (b) SP:
+# one seeded Jungfrau 4M frame, 2164 x 2068 (541 rows a rank at 4; Eiger
+# 16M's 4362 rows do not divide by 4), spots across every shard boundary at
+# 2 and 4 ranks; (c) the first chunk of phase 7's collection (A = 2048,
+# F = 4); (d) the DP batch as a rotation chunk, a spot across every frame
+# pair that can straddle a rank boundary.  NCCL with one rank a card on 2-4
+# cards; on one card, 2 ranks share cuda:0 over gloo
+MULTI_MAX_WORLD = 4
+JF4M = 2164, 2068
+MULTI_KF = 8192  # slots a frame: a batch frame holds ~3,000 strong pixels
+SP_CHIP_PX = 65536  # slots a row shard of the Jungfrau 4M frame
+SP_SPOTS = 8192
+HALO_REPS = 20  # halo exchanges a timing
+MULTI_KERNELS = ("dispersion_packed", "dispersion_extended_packed", "window_gather_planes",
+                 "window_gather", "bitshuffle_frames")
+
+
+def multi_kernel_wrappers():
+    """Kernel name -> its wrapper, for the kernels phase 17's path runs."""
+    from ffs_tpu_torch.ops import bitshuffle_device as bd
+    from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
+    from ffs_tpu_torch.ops import dispersion_packed as dp
+    from ffs_tpu_torch.ops import window_gather as wg
+
+    return dict(zip(MULTI_KERNELS, (dp.dispersion_packed_raw, dxp.dispersion_extended_packed_raw,
+                                    wg.window_gather_planes, wg.window_gather,
+                                    bd.frames_from_planes)))
+
+
+def jungfrau_4m_frame() -> np.ndarray:
+    """A seeded 2164 x 2068 u16 frame: Poisson(4), 400 scattered 3x3 spots
+    and, across every row shard boundary at 2 and 4 ranks (rows 541, 1082,
+    1623), 5x5 spots every 97 columns and a 2-column streak over 60 rows.
+    Every spot's total stays far below 2^24 / 2164, so its float32
+    weighted sums are exact integers and the table is order-independent."""
+    h, w = JF4M
+    rng = np.random.default_rng(41)
+    frame = rng.poisson(4.0, size=(h, w)).astype(np.uint16)
+    for y, x in zip(rng.integers(4, h - 4, 400), rng.integers(4, w - 4, 400)):
+        frame[y - 1 : y + 2, x - 1 : x + 2] += rng.poisson(60, size=(3, 3)).astype(np.uint16)
+    for b in (541, 1082, 1623):
+        for x in range(11, w - 11, 97):
+            frame[b - 3 : b + 2, x - 2 : x + 3] += rng.poisson(50, size=(5, 5)).astype(np.uint16)
+        frame[b - 30 : b + 30, 40 + b // 10 : 42 + b // 10] += np.uint16(40)
+    return frame
+
+
+ROT_PAIRS = (2, 4, 6)  # first frame after each boundary that 2 or 4 ranks can draw
+
+
+def rotation_batch(batch: np.ndarray) -> tuple[np.ndarray, list]:
+    """The DP batch with a 4x4 Poisson(80) spot on frames b-1, b, b+1 for
+    each b of ROT_PAIRS, each at its own place; returns (frames, centres)."""
+    rng = np.random.default_rng(43)
+    rot = batch.copy()
+    centres = []
+    for i, b in enumerate(ROT_PAIRS):
+        y, x = 1000 + 700 * i, 1200 + 500 * i
+        for f in (b - 1, b, b + 1):
+            rot[f, y : y + 4, x : x + 4] += rng.poisson(80, size=(4, 4)).astype(np.uint16)
+        centres.append((b, y, x))
+    return rot, centres
+
+
+def kabsch_chunk(integ, frames_host: np.ndarray) -> dict:
+    """The first chunk of an integrator's run and its first four-frame block:
+    the chunk's reflection indices, its coordinate-system arrays and the
+    block's host frames and per-frame arguments, as ``integrate`` makes
+    them."""
+    order = np.argsort(integ.bboxes[:, 4], kind="stable")
+    cs_e1 = np.cross(integ.s1, integ._s0)
+    cs_e1 /= np.linalg.norm(cs_e1, axis=1, keepdims=True)
+    cs_e2 = np.cross(integ.s1, cs_e1)
+    cs_e2 /= np.linalg.norm(cs_e2, axis=1, keepdims=True)
+    osc_start, osc_width = integ.scan.oscillation
+    f = integ.frame_block
+    blk = np.arange(f, dtype=np.float64)  # images 0..F-1 (z0 - 1 = 0)
+    return dict(
+        chunk=order[: integ.max_active], cs_e1=cs_e1, cs_e2=cs_e2, zeta=cs_e1 @ integ._m2,
+        frames=frames_host[:f], phi_lows=np.deg2rad(osc_start + blk * osc_width),
+        d_osc=float(np.deg2rad(osc_width)), z_values=blk, frame_ok=np.ones(f, dtype=bool),
+    )
+
+
+def integrator_args(expt, integ) -> dict:
+    """What a rank needs to rebuild ``integ`` (made for ``expt``) on its
+    own card."""
+    return dict(panel=expt.panel, beam=expt.beam, gonio=expt.goniometer, scan=expt.scan,
+                s1=integ.s1, phi=integ.phi, bboxes=integ.bboxes, delta_b=integ._delta_b,
+                delta_m=integ._delta_m, algorithm=integ.algorithm,
+                max_active=integ.max_active, frame_block=integ.frame_block)
+
+
+def multi_rank(backend: str, store: str, kabsch: dict, integ_kw: dict) -> dict:
+    """One rank of phase 17 (a ``run_ranks`` target): every mesh function on
+    the phase's host arrays (loaded from ``store``; each rank uploads only
+    its shard), with this rank's kernel launches (counts set to 0 just
+    before) and host-clock ms between barriers.  Each part runs twice: the
+    first call gives the result, the second the time (the first pays the
+    card's lazy module loads and NCCL's peer connections)."""
+    import torch
+
+    from ffs_tpu_torch.integration.kabsch import KabschIntegrator
+    from ffs_tpu_torch.parallel import mesh as pm
+    from ffs_tpu_torch.utils import torchinit
+
+    torchinit.setup()
+    mesh = pm.make_mesh(backend=backend)
+    a = {name: np.load(os.path.join(store, name + ".npy"))
+         for name in ("frames", "planes", "mask", "sp", "rot", "kframes", "kmask")}
+    zero = torch.zeros((), dtype=torch.int64, device=mesh.device)
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    def clocked(fn):
+        res = fn()
+        pm.all_reduce(zero, mesh)  # a barrier
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        pm.all_reduce(zero, mesh)
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    wrappers = multi_kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out, ms = {}, {}
+    kw = dict(max_pixels_per_frame=MULTI_KF, max_spots_per_chip=MULTI_KF)
+    # (a) DP
+    out["counts"], ms["counts"] = clocked(lambda: pm.sharded_spotfind_counts(
+        mesh, a["frames"], a["mask"], 65535.0))
+    out["packed"], ms["packed"] = clocked(lambda: pm.sharded_packed_pipeline(
+        mesh, a["frames"], a["mask"], 65535.0, **kw))
+    out["planes"], ms["planes"] = clocked(lambda: pm.sharded_packed_pipeline_planes(
+        mesh, a["planes"], a["frames"].shape[1:], np.uint16, a["mask"], 65535.0, **kw))
+    # (b) SP
+    sp_mask = np.ones(a["sp"].shape, np.uint8)
+    out["halo"], ms["halo"] = clocked(lambda: pm.halo_sharded_dispersion(
+        mesh, a["sp"], sp_mask, 65535.0))
+    for key, extended in (("sp", False), ("ext", True)):
+        out[key], ms[key] = clocked(lambda: pm.sharded_packed_sp_pipeline(
+            mesh, a["sp"], sp_mask, 65535.0, max_pixels_per_chip=SP_CHIP_PX,
+            max_spots=SP_SPOTS, extended=extended))
+        out[key + "_rounds"] = pm.sharded_packed_sp_pipeline.merge_rounds
+    hs = a["sp"].shape[0] // mesh.size
+    strip = torch.from_numpy(a["sp"][mesh.rank * hs : (mesh.rank + 1) * hs]).to(mesh.device)
+    _, t = clocked(lambda: [pm._halo_exchange(strip, 11, mesh) for _ in range(HALO_REPS)])
+    ms["halo_exchange"] = t / HALO_REPS
+    # (c) the Kabsch block step, each rank setting up its own rows of the chunk
+    integ = KabschIntegrator(device=mesh.device, **integ_kw)
+    integ.set_mask(a["kmask"])
+    frames = integ.pad_frames(torch.from_numpy(a["kframes"]).to(mesh.device))
+    chunk, ms["kabsch_setup"] = clocked(lambda: pm.sharded_chunk_setup(
+        mesh, integ, kabsch["chunk"], kabsch["cs_e1"], kabsch["cs_e2"], kabsch["zeta"]))
+    out["kabsch"], ms["kabsch"] = clocked(lambda: pm.sharded_kabsch_block_step(
+        mesh, integ, frames, chunk, kabsch["phi_lows"], kabsch["d_osc"], kabsch["z_values"],
+        kabsch["frame_ok"], local=True))
+    # (d) the rotation chunk
+    out["rotation"], ms["rotation"] = clocked(lambda: pm.sharded_rotation_compact(
+        mesh, a["rot"], a["mask"], 65535.0, max_pixels_per_frame=MULTI_KF))
+    sync()
+    out["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+    out["ms"] = ms
+    out["device"] = str(mesh.device)
+    return out
+
+
+def single_packed(frames, mask, world: int, dev):
+    """The packed DP pipeline's outputs on one device: per-frame counts of
+    the whole batch, spots of each rank's frames, the total."""
+    import torch
+
+    from ffs_tpu_torch.ops import connected_components as cc
+    from ffs_tpu_torch.ops.compact import compact_from_pcw_segmented
+    from ffs_tpu_torch.ops.dispersion_packed import dispersion_packed_raw
+
+    imgs = torch.from_numpy(frames).to(dev)
+    msk = torch.from_numpy(mask).to(dev)
+    k = len(frames) // world
+    per_frame, spots = [], []
+    for r in range(world):
+        part = imgs[r * k : (r + 1) * k]
+        pcw = dispersion_packed_raw(part, msk, 65535.0)
+        p, nbu, nbd, counts = compact_from_pcw_segmented(part, pcw,
+                                                         max_pixels_per_frame=MULTI_KF,
+                                                         with_neighbors=True)
+        root = cc.label_compact_pixels(p, width=frames.shape[-1], neighbors=(nbu, nbd))
+        table = cc.spot_table_from_pixels(p, root, width=frames.shape[-1], max_spots=MULTI_KF,
+                                          dtype=torch.float32, frame_rows=frames.shape[1])
+        per_frame.append(counts)
+        spots.append(table.n_spots)
+    per_frame = torch.cat(per_frame).cpu()
+    return per_frame, torch.stack(spots).cpu(), per_frame.sum(dtype=torch.int32)
+
+
+def phase_multi(dev, card: str, col, integ) -> dict:
+    """Phase 17: the mesh functions over ``world`` ranks against the
+    single-device path on ``cuda:0``, bit for bit, ``integ`` being phase
+    7's integrator of the collection ``col``; returns each kernel's
+    launches, one count a rank."""
+    import dataclasses
+
+    import torch
+
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.ops import cc3d
+    from ffs_tpu_torch.ops import dispersion as dops
+    from ffs_tpu_torch.parallel import dryrun, rotation_frame_pixels
+    from ffs_tpu_torch.parallel.launch import run_ranks
+    from ffs_tpu_torch.tools.measure_stages import make_batch
+
+    count = torch.cuda.device_count()
+    world = min(count, MULTI_MAX_WORLD)
+    if world >= 2:
+        backend, how = "nccl", f"{world} cards, one rank a card (NCCL)"
+    else:
+        world, backend = 2, "gloo"
+        how = "one card: 2 ranks share cuda:0, collectives through host memory (gloo)"
+    say(f"multi-device: world {world}, backend {backend}: {how}; on {card}")
+
+    t0 = time.perf_counter()
+    mask = sample_data.generate_mask()
+    batch = make_batch(8, mask, spots=300, seed=12)
+    _, planes = to_planes(batch)
+    sp = jungfrau_4m_frame()
+    rot, centres = rotation_batch(batch)
+    kab = kabsch_chunk(integ, col.frames)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ffs_multi_") as store:
+        for name, arr in (("frames", batch), ("planes", planes), ("mask", mask), ("sp", sp),
+                          ("rot", rot), ("kframes", kab.pop("frames")), ("kmask", col.mask)):
+            np.save(os.path.join(store, name + ".npy"), arr)
+        say(f"multi-device set-up: {time.perf_counter() - t0:.1f} s")
+        ranks, t_all = timed(lambda: run_ranks(
+            multi_rank, world, backend=backend, timeout=900,
+            args=(backend, store, kab, integrator_args(col.expt, integ))))
+    r0 = ranks[0]
+    say(f"multi-device: {world} ranks in {t_all:.1f} s (spawn, set-up and every part); rank "
+        f"devices {[r['device'] for r in ranks]}")
+    for r in ranks[1:]:
+        for key in ("counts", "packed", "planes", "halo", "sp", "ext", "sp_rounds", "ext_rounds",
+                    "kabsch", "rotation"):
+            if not tensors_equal(r[key], r0[key]):
+                fail(f"multi-device: {key} differs between rank 0 and another rank")
+
+    # (a) DP against the single-device path on cuda:0
+    want_counts = dops.dispersion(
+        torch.from_numpy(batch).to(dev), torch.from_numpy(mask).to(dev), 65535.0,
+        dtype=torch.float32).sum(dim=(-2, -1), dtype=torch.int32)
+    want_packed = single_packed(batch, mask, world, dev)
+    _, t_single = timed(lambda: single_packed(batch, mask, 1, dev))
+    if not (tensors_equal(r0["counts"][0], want_counts)
+            and int(r0["counts"][1]) == int(want_counts.sum())):
+        fail("multi-device: sharded_spotfind_counts differs from the single-device threshold")
+    for key in ("packed", "planes"):
+        if not tensors_equal(tuple(r0[key]), want_packed):
+            fail(f"multi-device: the {key} DP pipeline differs from the single-device path")
+    ms = r0["ms"]
+    say(f"multi-device (a) DP, B = 8 Eiger 16M: per-frame counts, spots per rank "
+        f"{r0['packed'][1].tolist()} and total {int(r0['packed'][2])} equal the single-device "
+        f"path, from frames and from planes; counts (f32 plain) {ms['counts']:.1f} ms, packed "
+        f"{ms['packed']:.1f} ms = {8e3 / ms['packed']:.1f} frames/s at world {world} against "
+        f"{8 / t_single:.1f} frames/s at world 1 ({1e3 * t_single:.1f} ms, host clock), planes "
+        f"{ms['planes']:.1f} ms, on {card}")
+
+    # (b) SP against the single-device packed path and ops.dispersion
+    img = torch.from_numpy(sp).to(dev)
+    ones = torch.ones(JF4M, dtype=torch.uint8, device=dev)
+    if not tensors_equal(r0["halo"], dops.dispersion(img, ones, 65535.0, dtype=torch.float32)):
+        fail("multi-device: halo_sharded_dispersion differs from ops.dispersion on one device")
+    for key, extended in (("sp", False), ("ext", True)):
+        table, total = r0[key]
+        px, want = dryrun.single_table(sp, np.ones(JF4M, np.uint8), world * SP_CHIP_PX, SP_SPOTS,
+                                       extended, dev)
+        ns, want_total = int(want.n_spots), px.count
+        bad = [f for f in want._fields if f != "n_spots"
+               and not tensors_equal(getattr(table, f)[:ns], getattr(want, f)[:ns])]
+        if int(table.n_spots) != ns or int(total) != int(want_total) or bad or ns == 0:
+            fail(f"multi-device: SP {key} table differs from the single-device path: spots "
+                 f"{int(table.n_spots)} / {ns}, total {int(total)} / {int(want_total)}, "
+                 f"columns {bad}")
+        crossing = int(((table.y_min[:ns] // (JF4M[0] // world))
+                        != (table.y_max[:ns] // (JF4M[0] // world))).sum())
+        if crossing == 0:
+            fail(f"multi-device: SP {key}: no spot crosses a shard boundary")
+        say(f"multi-device (b) SP{' extended' if extended else ''}, Jungfrau 4M: {ns} spots "
+            f"({crossing} across shard boundaries), {int(total)} strong px, every column equal "
+            f"to the single-device path; {r0[key + '_rounds']} merge rounds; "
+            f"{ms[key]:.1f} ms on {card}")
+    say(f"multi-device (b) halo_sharded_dispersion equals ops.dispersion (f32) on one device, "
+        f"{ms['halo']:.1f} ms; an 11-row halo exchange of a {JF4M[0] // world}-row strip "
+        f"{ms['halo_exchange']:.3f} ms ({backend}, mean of {HALO_REPS}) on {card}")
+
+    # (c) the Kabsch block step against _block_step_impl on phase 7's integrator
+    chunk = integ._chunk_setup(kab["chunk"], kab["cs_e1"], kab["cs_e2"], kab["zeta"])
+    frames = integ.pad_frames(torch.from_numpy(col.frames[: integ.frame_block]).to(dev))
+    want = integ._block_step_impl(
+        frames, chunk, torch.from_numpy(kab["phi_lows"]).to(dev), kab["d_osc"],
+        torch.from_numpy(kab["z_values"]).to(dev), torch.from_numpy(kab["frame_ok"]).to(dev),
+        centre_slices=True)
+    for i, (g, w) in enumerate(zip(r0["kabsch"], want)):
+        if not tensors_equal(g, w):
+            fail(f"multi-device: Kabsch output {i} differs from _block_step_impl")
+    if int(want[1].sum()) == 0:
+        fail("multi-device: the Kabsch chunk classified no foreground")
+    say(f"multi-device (c) Kabsch, A = {len(kab['chunk'])}, F = {integ.frame_block}: all eight "
+        f"outputs equal _block_step_impl ({int(want[1].sum())} foreground pixels); chunk set-up "
+        f"{ms['kabsch_setup']:.1f} ms, step {ms['kabsch']:.1f} ms on {card}")
+
+    # (d) the rotation chunk against the one-device Spots3D
+    lin, inten, rl, pf, pitch = r0["rotation"]
+    k = len(rot) // world
+    got_frames = rotation_frame_pixels(lin, inten, rl, pf, pitch, MULTI_KF, k)
+    _, want_frames, want_spots = dryrun.single_rotation(rot, mask, MULTI_KF, dev)
+    spots = cc3d.merge_frames(got_frames, width=rot.shape[-1])
+    if not all(tensors_equal(getattr(a, f.name), getattr(b, f.name))
+               for a, b in zip(got_frames, want_frames)
+               for f in dataclasses.fields(cc3d.FramePixels)):
+        fail("multi-device: rotation frame pixels differ from the one-device path")
+    if len(spots) != len(want_spots) or not all(
+            tensors_equal(getattr(spots, f.name), getattr(want_spots, f.name))
+            for f in dataclasses.fields(cc3d.Spots3D)):
+        fail("multi-device: the rotation Spots3D differs from the one-device path")
+    for b, y, x in centres:
+        if b % k:
+            continue  # not a rank boundary at this world
+        hit = ((spots.z_min <= b - 1) & (spots.z_max >= b + 1) & (spots.y_min <= y)
+               & (spots.y_max >= y + 3) & (spots.x_min <= x) & (spots.x_max >= x + 3))
+        if not hit.any():
+            fail(f"multi-device: no 3D spot spans the rank boundary before frame {b}")
+    say(f"multi-device (d) rotation, B = 8 Eiger 16M: {len(spots)} 3D spots equal the one-device "
+        f"Spots3D, planted spots span every rank boundary; {ms['rotation']:.1f} ms on {card}")
+
+    launches = {name: [r["launches"][name] for r in ranks] for name in MULTI_KERNELS}
+    say(f"multi-device kernel launches, one count a rank: {launches}")
+    if min(min(n) for n in launches.values()) == 0:
+        fail(f"multi-device: a rank did not launch a kernel of the path: {launches}")
+    return launches
+
+
+def multi_collection(dev):
+    """Phase 7's collection and integrator, without phase 7's checks and
+    times: what phase 17 needs when it runs alone."""
+    import types
+
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.pipeline.integrator import integrate_experiment
+    from ffs_tpu_torch.prediction.rotation import predict_rotation
+
+    expt = eiger_experiment()
+    mask = sample_data.generate_mask()
+    pred = predict_rotation(expt, device=dev)
+    frames, _ = synth_collection(expt, pred, mask, dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = integrate_experiment(expt, {}, HostFrames(frames, mask), device=dev,
+                                   sigma_b=np.deg2rad(SIGMA_B_DEG),
+                                   sigma_m=np.deg2rad(SIGMA_M_DEG))
+    return types.SimpleNamespace(expt=expt, frames=frames, mask=mask), out.integrator
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU.")
+    ap.add_argument("--multi-only", action="store_true",
+                    help="run phases 1, 2 and 17 (multi-device) alone, for a multi-card "
+                         "machine; ends with a line of its own, not the smoke's result")
+    args = ap.parse_args()
     # the smoke proves the port runs on its own: any import of JAX, of the
     # JAX package or of its benchmark fails
     for name in ("jax", "ffs_tpu", "bench"):
@@ -2214,6 +2627,13 @@ def main() -> int:
     from ffs_tpu_torch.utils import torchinit
 
     torchinit.setup()
+    if args.multi_only:
+        col, integ = multi_collection(dev)
+        launches = phase_multi(dev, card, col, integ)
+        say(f"card: {card}")
+        say(f"multi-device only: phases 1, 2 and 17 passed on {torch.cuda.device_count()} "
+            f"card(s), launches {launches}; not the smoke's result")
+        return 0
     max_err = phase_kernels(dev)
 
     # phase 4: main path
@@ -2274,10 +2694,14 @@ def main() -> int:
     phase_pia_hook(dev, card)
 
     # phase 16: the integrator's --bg-device path, at phase 7's size and at
-    # the whole sweep's, and the predictor CLI on the sweep
+    # the whole sweep's, and the predictor CLI on a scan of the sweep's
+    # configuration
     phase_bg_device(dev, card, col, integ_run.acc)
-    sweep_expt, sweep_pred = phase_bg_device_sweep(dev, card, col.slices / kabsch_s)
-    phase_predictor_cli(dev, card, sweep_expt, sweep_pred)
+    phase_bg_device_sweep(dev, card, col.slices / kabsch_s)
+    phase_predictor_cli(dev, card)
+
+    # phase 17: multi-device, the mesh functions over 2-4 ranks
+    launches_multi = phase_multi(dev, card, col, integ_run.integrator)
 
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
@@ -2323,6 +2747,7 @@ def main() -> int:
             "bound_ms": figures[name]["bound"][0],
             "bound_by": figures[name]["bound"][1],
             "library_ms": figures[name]["library_ms"],
+            "multi_launches": launches_multi.get(name),
         }
         for name, (src, replaces) in sources.items()
     ]}

@@ -300,14 +300,15 @@ class KabschIntegrator:
 
     # --- blocked device step --------------------------------------------------
 
-    def _chunk_setup(self, chunk: np.ndarray, cs_e1, cs_e2, zeta) -> dict:
+    def _chunk_setup(self, chunk: np.ndarray, cs_e1, cs_e2, zeta, *, width=None) -> dict:
         """Device-resident per-chunk constants: the in-plane Kabsch term e12
         from the gathered corner-field windows, the mask windows and the
-        parameter arrays.  Cached by :meth:`integrate` for the chunk's whole
+        parameter arrays, padded to ``width`` rows (``max_active`` by
+        default).  Cached by :meth:`integrate` for the chunk's whole
         z-span, so the corner geometry amortises across the block steps."""
         self.chunk_setups += 1
         a = len(chunk)
-        pad_n = self.max_active - a
+        pad_n = (self.max_active if width is None else width) - a
 
         def padi(v, fill=0):
             return np.concatenate([v, np.full((pad_n,) + v.shape[1:], fill, v.dtype)])
