@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the spotfinder, the
-integrator (with ``--bg-device``), the predictor CLI and the indexers.
+integrator (with ``--bg-device``), the predictor CLI, the indexers and the
+bench.
 
     python3 chip_smoke.py
 
@@ -134,6 +135,15 @@ import).  Phases, each of which fails the run:
    (phase 7's integrator set up without its checks), for a machine with
    several cards, and ends with a line of its own: no kernels line and no
    ``{"ok": ...}`` line.
+
+18. the bench — ``python -m ffs_tpu_torch.bench`` (the port's counterpart
+   of ``bench.py``) in a process of its own at full shapes with short reps
+   (``BENCH_ENV``): it must exit 0, hold the sample anchors bit for bit
+   resident and through device decode, print the six metric lines measured
+   on this card (none ``_VALIDATION_FAILED``, its last line the Eiger
+   metric), and launch each of TPU kernel rows 1-5 (the sums of its
+   per-stage launch lines stand in the kernels line as
+   ``bench_launches``).  Its lines are printed as they came.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -318,38 +328,6 @@ def phase_kernels(dev):
     return max_err
 
 
-def check_golden(golden, tag: str, w: int, lin, inten, table) -> list[str]:
-    """One frame's pixel list and host spot table against the golden; the
-    mismatches as strings (none: bit-parity).  Integer columns (pixel
-    coordinates and intensities, pixel counts, boxes, peaks and their
-    intensity, the integer-valued intensity sums) must be equal; the two
-    centres of mass are float32 quotients of exact sums, so they get a
-    relative band of 1e-5 against the float64 golden."""
-    errs = []
-    y, x = lin // w, lin % w
-    if len(lin) != len(golden[f"{tag}_y"]):
-        return [f"{tag}: pixel count {len(lin)} != {len(golden[f'{tag}_y'])}"]
-    if not (np.array_equal(y, golden[f"{tag}_y"]) and np.array_equal(x, golden[f"{tag}_x"])):
-        errs.append(f"{tag}: strong-pixel coordinate list differs")
-    if not np.array_equal(inten.astype(np.int64), golden[f"{tag}_intensity"].astype(np.int64)):
-        errs.append(f"{tag}: strong-pixel intensities differ")
-    if table.n_spots != len(golden[f"{tag}_n_pixels"]):
-        return errs + [f"{tag}: spot count {table.n_spots} != {len(golden[f'{tag}_n_pixels'])}"]
-    for col in ("n_pixels", "x_min", "x_max", "y_min", "y_max", "peak_x", "peak_y",
-                "peak_intensity"):
-        got = np.asarray(getattr(table, col)).astype(np.int64)
-        if not np.array_equal(got, golden[f"{tag}_{col}"].astype(np.int64)):
-            errs.append(f"{tag}: column {col} differs")
-    got = np.asarray(table.sum_intensity).astype(np.float64)
-    if not np.array_equal(got, golden[f"{tag}_sum_intensity"].astype(np.float64)):
-        errs.append(f"{tag}: column sum_intensity differs")
-    for col in ("com_x", "com_y"):
-        got = np.asarray(getattr(table, col)).astype(np.float64)
-        if not np.allclose(got, golden[f"{tag}_{col}"].astype(np.float64), rtol=1e-5, atol=1e-4):
-            errs.append(f"{tag}: column {col} outside the float32 band")
-    return errs
-
-
 def run_cli(args: list[str]):
     """The port's CLI in-process; returns (rc, log, pipe JSON lines, seconds)."""
     from ffs_tpu_torch.pipeline import spotfinder
@@ -428,11 +406,12 @@ def phase_main_path():
 
 def phase_golden(dev):
     """f32 pixel lists + host spot tables of images 2 and 5 vs the golden."""
+    from ffs_tpu_torch.bench import check_anchor, load_anchor_golden
     from ffs_tpu_torch.io import sample_data
     from ffs_tpu_torch.ops.cc2d_host import cc2d
     from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
 
-    golden = np.load(ROOT / "tests" / "data" / "bench_anchor_golden.npz")
+    golden = load_anchor_golden()
     h, w = SIDE
     proc = SpotfindProcessor(
         w, h, sample_data.generate_mask(), 65535.0,
@@ -446,7 +425,7 @@ def phase_golden(dev):
         inten = res.pixels.intensity
         t = cc2d(lin, inten, w)
         s = t.n_spots
-        errs = check_golden(golden, tag, w, lin, inten, t)
+        errs = check_anchor(golden, tag, w, lin, inten, t)
         if errs:
             fail("; ".join(errs))
         say(f"golden {tag}: {len(lin)} px, {s} spots, every column equal (incl. peak_intensity)")
@@ -1081,11 +1060,12 @@ def phase_batch_main_path(chunks: list[bytes]):
 def phase_batch_golden(dev, sample_planes: np.ndarray):
     """Images 2 and 5 through collect_batch, from frames and from planes,
     against the golden; the device-CC batch equal to the host-CC one."""
+    from ffs_tpu_torch.bench import check_anchor, load_anchor_golden
     from ffs_tpu_torch.io import sample_data
     from ffs_tpu_torch.ops.cc2d_host import cc2d
     from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
 
-    golden = np.load(ROOT / "tests" / "data" / "bench_anchor_golden.npz")
+    golden = load_anchor_golden()
     h, w = SIDE
     mask = sample_data.generate_mask()
     nums = [2, 3, 4, 5]
@@ -1105,7 +1085,7 @@ def phase_batch_golden(dev, sample_planes: np.ndarray):
             for tag, idx in (("img2", 2), ("img5", 5)):
                 r = res[nums.index(idx)]
                 lin = r.pixels.linear_index.astype(np.int64)
-                errs = check_golden(golden, tag, w, lin, r.pixels.intensity,
+                errs = check_anchor(golden, tag, w, lin, r.pixels.intensity,
                                     cc2d(lin, r.pixels.intensity, w))
                 if errs:
                     fail(f"batch {cc_backend} CC from {form}: " + "; ".join(errs))
@@ -1561,18 +1541,6 @@ PIA_WAVELENGTH, PIA_MU_SI = 0.97625, 3.92199
 PIA_CELL = (78.9, 78.9, 38.1, 90.0, 90.0, 90.0)
 
 
-def ssx_images():
-    """tools/bench_ssx.py's stills, from the port's copy of the generators."""
-    from ffs_tpu_torch.tools import ssx_adversarial as adv
-
-    images = []
-    for seed in range(SSX_IMAGES):
-        crystal, panel, wavelength, s0, rng = adv.make_experiment(seed + 1)
-        obs = adv.lattice_spots(crystal, panel, s0, rng)
-        images.append(np.concatenate([obs, adv.noise_spots(rng, 10)]))
-    return images, panel, wavelength
-
-
 def ssx_success(results) -> list[bool]:
     """An image is indexed when a lattice of the known cell (3%) came back."""
     from ffs_tpu_torch.tools.ssx_adversarial import CELL
@@ -1590,9 +1558,10 @@ def phase_ssx(dev, card: str) -> None:
 
     from ffs_tpu_torch.indexing import ssx
     from ffs_tpu_torch.indexing.rlp import ssx_xyz_to_rlp
+    from ffs_tpu_torch.tools.bench_ssx import stills
     from ffs_tpu_torch.tools.ssx_adversarial import CELL
 
-    images, panel, wavelength = ssx_images()
+    images, panel, wavelength = stills(SSX_IMAGES)
     spots = [len(x) for x in images]
 
     def armed(**kw):
@@ -2230,20 +2199,6 @@ MULTI_KF = 8192  # slots a frame: a batch frame holds ~3,000 strong pixels
 SP_CHIP_PX = 65536  # slots a row shard of the Jungfrau 4M frame
 SP_SPOTS = 8192
 HALO_REPS = 20  # halo exchanges a timing
-MULTI_KERNELS = ("dispersion_packed", "dispersion_extended_packed", "window_gather_planes",
-                 "window_gather", "bitshuffle_frames")
-
-
-def multi_kernel_wrappers():
-    """Kernel name -> its wrapper, for the kernels phase 17's path runs."""
-    from ffs_tpu_torch.ops import bitshuffle_device as bd
-    from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
-    from ffs_tpu_torch.ops import dispersion_packed as dp
-    from ffs_tpu_torch.ops import window_gather as wg
-
-    return dict(zip(MULTI_KERNELS, (dp.dispersion_packed_raw, dxp.dispersion_extended_packed_raw,
-                                    wg.window_gather_planes, wg.window_gather,
-                                    bd.frames_from_planes)))
 
 
 def jungfrau_4m_frame() -> np.ndarray:
@@ -2343,7 +2298,9 @@ def multi_rank(backend: str, store: str, kabsch: dict, integ_kw: dict) -> dict:
         pm.all_reduce(zero, mesh)
         return res, 1e3 * (time.perf_counter() - t0)
 
-    wrappers = multi_kernel_wrappers()
+    from ffs_tpu_torch.bench import kernel_wrappers
+
+    wrappers = kernel_wrappers()  # TPU kernel rows 1-5
     for fn in wrappers.values():
         fn.launches = 0
     out, ms = {}, {}
@@ -2553,7 +2510,7 @@ def phase_multi(dev, card: str, col, integ) -> dict:
     say(f"multi-device (d) rotation, B = 8 Eiger 16M: {len(spots)} 3D spots equal the one-device "
         f"Spots3D, planted spots span every rank boundary; {ms['rotation']:.1f} ms on {card}")
 
-    launches = {name: [r["launches"][name] for r in ranks] for name in MULTI_KERNELS}
+    launches = {name: [r["launches"][name] for r in ranks] for name in ranks[0]["launches"]}
     say(f"multi-device kernel launches, one count a rank: {launches}")
     if min(min(n) for n in launches.values()) == 0:
         fail(f"multi-device: a rank did not launch a kernel of the path: {launches}")
@@ -2580,12 +2537,59 @@ def multi_collection(dev):
     return types.SimpleNamespace(expt=expt, frames=frames, mask=mask), out.integrator
 
 
+# phase 18: the port's bench at full shapes, its reps cut to keep the phase
+# under 90 s (the defaults are bench.py's: 128 spotfinder reps, 16 integrator
+# reps, the effective fold at full scale, 2 SSX passes)
+BENCH_ENV = {"FFS_BENCH_REPS": "16", "FFS_BENCH_INT_REPS": "8", "FFS_BENCH_INT_EFF_SCALE": "0.25",
+             "FFS_BENCH_SSX_REPS": "1"}
+BENCH_METRICS = ("eiger16m_spotfind_fps", "eiger16m_ingest_spotfind_fps",
+                 "jungfrau1m_extended_spotfind_fps", "kabsch_integrate_refl_per_s",
+                 "kabsch_integrate_effective_slices_per_s", "ssx_index_images_per_s")
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 18: ``python -m ffs_tpu_torch.bench`` on this card; returns the
+    launches of kernel rows 1-5 summed over its stages."""
+    env = {k: v for k, v in os.environ.items() if k not in ("FFS_BENCH_SMOKE", "FFS_TORCH_DEVICE")}
+    env.update(BENCH_ENV)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ffs_tpu_torch.bench"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    for text in r.stdout.splitlines():
+        say(f"bench: {text}")
+    if r.returncode != 0:
+        print(r.stderr[-6000:], file=sys.stderr)
+        fail(f"the bench exited {r.returncode}")
+    lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    anchors = {x["anchors"]: x["ok"] for x in lines if "anchors" in x}
+    if anchors != {"resident": True, "ingest": True}:
+        fail(f"bench anchors: {anchors}")
+    metrics = {x["metric"]: x for x in lines if "metric" in x}
+    if sorted(metrics) != sorted(BENCH_METRICS):
+        fail(f"bench metric lines {sorted(metrics)} != {sorted(BENCH_METRICS)}")
+    for name, x in metrics.items():
+        if x["device"] != card or x.get("smoke") or not x["value"] > 0:
+            fail(f"bench line {x} is not a measurement on {card}")
+    if lines[-1].get("metric") != BENCH_METRICS[0]:
+        fail(f"the bench's last line is not the Eiger metric: {lines[-1]}")
+    stages = [x["launches"] for x in lines if "launches" in x]
+    launches = {k: sum(st[k] for st in stages) for k in stages[0]}
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the bench never launched {name}")
+    say(f"bench: exit 0, anchors bit-equal resident and ingest, six metrics on {card}, "
+        f"launches {launches}, {seconds:.1f} s with {BENCH_ENV}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU.")
     ap.add_argument("--multi-only", action="store_true",
                     help="run phases 1, 2 and 17 (multi-device) alone, for a multi-card "
                          "machine; ends with a line of its own, not the smoke's result")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     # the smoke proves the port runs on its own: any import of JAX, of the
     # JAX package or of its benchmark fails
     for name in ("jax", "ffs_tpu", "bench"):
@@ -2599,11 +2603,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA GPU")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    card = smi.splitlines()[0]
+    from ffs_tpu_torch.bench import card_name
+
+    card = card_name(dev)  # as nvidia-smi prints it
     say(f"card: {card}")
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -2703,6 +2705,9 @@ def main() -> int:
     # phase 17: multi-device, the mesh functions over 2-4 ranks
     launches_multi = phase_multi(dev, card, col, integ_run.integrator)
 
+    # phase 18: the port's bench, its own process
+    launches_bench = phase_bench(card)
+
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
@@ -2748,9 +2753,11 @@ def main() -> int:
             "bound_by": figures[name]["bound"][1],
             "library_ms": figures[name]["library_ms"],
             "multi_launches": launches_multi.get(name),
+            "bench_launches": launches_bench.get(name),
         }
         for name, (src, replaces) in sources.items()
     ]}
+    say(f"smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s on {card}")
     say(f"card: {card}")
     say(json.dumps(summary))
     say(json.dumps({

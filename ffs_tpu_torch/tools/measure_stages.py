@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from ..bench import make_frames
 from ..io import sample_data
 from ..ops import connected_components as cc
 from ..ops.compact import (
@@ -63,19 +64,7 @@ def make_batch(batch: int, mask: np.ndarray, *, spots: int = 300, seed: int = 12
     """(batch, *mask.shape) u16 frames: one Poisson(2) base, ``spots`` 3x3 spots of
     Poisson(60) added per frame at 8 px or more from the edges, zero under
     the mask; the JAX tool's batch for the same seed and shape."""
-    h, w = mask.shape
-    rng = np.random.default_rng(seed)
-    base = rng.poisson(2.0, size=(h, w)).astype(np.uint16)
-    frames = []
-    for _ in range(batch):
-        f = base.copy()
-        ys = rng.integers(8, h - 8, spots)
-        xs = rng.integers(8, w - 8, spots)
-        for yy, xx in zip(ys, xs):
-            f[yy - 1 : yy + 2, xx - 1 : xx + 2] += rng.poisson(60.0, size=(3, 3)).astype(np.uint16)
-        f[mask == 0] = 0
-        frames.append(f)
-    return np.stack(frames)
+    return make_frames(np.random.default_rng(seed), *mask.shape, batch, mask, n_spots=spots)
 
 
 @dataclasses.dataclass
