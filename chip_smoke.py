@@ -102,7 +102,8 @@ import).  Phases, each of which fails the run:
    bit, accumulators equal to phase 7's, every column within 1e-12 of the
    host path (integers exactly), the gathers launched as the run's chunks
    say; stage times of both paths; (b) the whole 3600-image sweep (~1.63M
-   predictions on the card): device bounding boxes against the host's on
+   predictions on the card, by the blocked search, its blocks and retries
+   counted): device bounding boxes against the host's on
    every row, seeded histograms (with edge rows) and accumulators through
    the device backgrounds and finalisation at that N against the host
    functions on the first HOST_ROWS rows (the GLM on the first
@@ -143,7 +144,17 @@ import).  Phases, each of which fails the run:
    on this card (none ``_VALIDATION_FAILED``, its last line the Eiger
    metric), and launch each of TPU kernel rows 1-5 (the sums of its
    per-stage launch lines stand in the kernels line as
-   ``bench_launches``).  Its lines are printed as they came.
+   ``bench_launches``).  Its lines are printed as they came;
+19. prediction — the blocked two-pass search (``predict_rotation``'s
+   default) against the per-image float64 search on the card: phase 7's
+   40 images and phase 16b's sweep, the same reflections under the fuzz's
+   keys (``tools/fuzz_predict``), xyzcal.px within 1e-9 and s1 within
+   1e-12, with both searches' seconds; a forced overflow of both
+   capacities (64 candidates a block at first) giving the unforced rows bit
+   for bit; the port's fuzz over 8 seeds; one block's CUDA-event ms at the
+   bench's grid and at the sweep's beside its bound (float32 operations,
+   58 a pair, or compulsory bytes), with the profiler's busy share and
+   kernels.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -1790,6 +1801,25 @@ FIN_FIELDS = ("intensity", "variance", "background_mean", "background_sum", "xyz
               "partiality", "lp", "d")
 
 
+@contextlib.contextmanager
+def counted_blocks():
+    """The blocked prediction search's block runs for the duration, first
+    runs and retries: a list of each run's (cap, chunk_cap)."""
+    from ffs_tpu_torch.prediction import rotation
+
+    block, runs = rotation._prediction_block, []
+
+    def counting(packed, tables, cap, chunk_cap, *rest):
+        runs.append((cap, chunk_cap))
+        return block(packed, tables, cap, chunk_cap, *rest)
+
+    rotation._prediction_block = counting
+    try:
+        yield runs
+    finally:
+        rotation._prediction_block = block
+
+
 def timed(fn):
     """(fn(), seconds) on the host clock, the device synchronised on both
     sides."""
@@ -1955,7 +1985,8 @@ def seeded_histograms(n: int, dev, seed: int = 11):
 
 def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
     """Phase 16 (b): the device stages of ``--bg-device`` at collection
-    scale."""
+    scale; returns the sweep's experiment, its prediction (the blocked
+    search), that prediction's seconds, blocks and retries."""
     import types
 
     import torch
@@ -1967,10 +1998,13 @@ def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
     from ffs_tpu_torch.prediction.rotation import predict_rotation
 
     expt = eiger_experiment(n_images=SWEEP_IMAGES)
-    pred, t_pred = timed(lambda: predict_rotation(expt, device=dev))
+    with counted_blocks() as runs:
+        pred, t_pred = timed(lambda: predict_rotation(expt, device=dev))
     n = len(pred.hkl)
+    n_blocks = -(-SWEEP_IMAGES // 32)
     say(f"sweep: {SWEEP_IMAGES} images, {n} predictions ({n / SWEEP_IMAGES:.0f} per image) "
-        f"from predict_rotation in {t_pred:.1f} s on {card}")
+        f"from predict_rotation in {t_pred:.1f} s on {card} (the blocked search: {n_blocks} "
+        f"blocks, {len(runs) - n_blocks} retries, capacities {runs[-1]})")
     if n < 1_500_000:
         fail(f"sweep: only {n} predictions")
     k = HOST_ROWS
@@ -2134,6 +2168,8 @@ def phase_bg_device_sweep(dev, card: str, slices_per_s: float):
     say(f"sweep: device stages (boxes, GLM background from host arrays, finalize) {device_s:.3f} s "
         f"against an estimated {est:.1f} s of integrate() for {slices} slices at phase 7's "
         f"{slices_per_s:.0f} slices/s: {100 * device_s / est:.2f}% on {card}")
+    return types.SimpleNamespace(expt=expt, pred=pred, seconds=t_pred, blocks=n_blocks,
+                                 retries=len(runs) - n_blocks)
 
 
 def phase_predictor_cli(dev, card: str) -> None:
@@ -2583,6 +2619,122 @@ def phase_bench(card: str) -> dict:
     return launches
 
 
+# phase 19: the blocked prediction search, the port's default, against the
+# per-image float64 search on the card: phase 7's experiment and phase 16b's
+# sweep, a forced overflow, the port's fuzz; one block's time at the
+# bench's grid and the sweep's beside its bound
+PREDICT_TOL = {"xyzcal_px": 1e-9, "s1": 1e-12}  # tests/test_prediction.py's, absolute
+FUZZ_SEEDS = 8
+# the per-image search's rows do not depend on its hkl chunk: one chunk of
+# the whole grid (~2.5M rows here) makes it one pass an image, where its
+# default 2^17 makes 20 passes, each with its own host synchronisations
+PER_IMAGE_CHUNK = 1 << 22
+# float32 operations a pass-1 (image, hkl) pair needs: r = A h at both ends
+# (2 x 3 rows x (3 products + 2 adds) = 30), q = r.(2 s0 + r) at both ends
+# (2 x (3 adds, 3 products, 2 adds) = 16), |r1|^2 (3 products + 2 adds = 5),
+# the resolution test (1), the sign test (2 compares) and the band (2
+# absolute values + 2 compares): 58
+PREDICT_OPS_PER_PAIR = 58
+
+
+def prediction_parity(label: str, blocked, per_image) -> tuple[float, float]:
+    """Fails unless both searches keep the same reflections under the fuzz's
+    keys with xyzcal.px and s1 within PREDICT_TOL; returns the largest
+    differences (px, s1)."""
+    from ffs_tpu_torch.tools.fuzz_predict import compare, match_order
+
+    r = compare(blocked, per_image)
+    if "fail" in r:
+        fail(f"{label}: the blocked and per-image searches differ: {r}")
+    kb, kh = match_order(blocked), match_order(per_image)
+    px = float(np.abs(blocked.xyzcal_px[kb] - per_image.xyzcal_px[kh]).max())
+    s1 = float(np.abs(blocked.s1[kb] - per_image.s1[kh]).max())
+    if px > PREDICT_TOL["xyzcal_px"] or s1 > PREDICT_TOL["s1"]:
+        fail(f"{label}: px differ by {px:.3e}, s1 by {s1:.3e} (limits {PREDICT_TOL})")
+    return px, s1
+
+
+def block_figures(label: str, expt, dev, card: str) -> None:
+    """One block of the blocked search on ``expt``'s first 32 images
+    (``tools/bench_integrator.prediction_block``): CUDA-event ms a block
+    beside its bound, and where its device time goes."""
+    from ffs_tpu_torch.tools import bench_integrator as bi
+
+    block, info = bi.prediction_block(expt, dev)
+    ms = cuda_ms(lambda: block(1.0), reps=20)
+    pairs = info["images"] * info["n_hkl"]
+    # compulsory bytes: the packed states, the float32 chunks (12 B a row)
+    # and their hkl != 000 mask (1 B) once, the float64 rows of the wide
+    # candidates (24 B), the (cap + 1) x 8 float64 result
+    nbytes = (info["images"] * 26 * 8 + info["n_pad"] * 13 + int(info["counts"][0]) * 24
+              + (info["cap"] + 1) * 64)
+    b_ms, b_by = bound_ms(nbytes, pairs * PREDICT_OPS_PER_PAIR)
+    say(f"prediction block at {label}: {info['images']} images x {info['n_hkl']} hkl "
+        f"({info['n_pad'] // (1 << 17)} chunks of 2^17), wide candidates {info['counts']}, cap "
+        f"{info['cap']}, chunk cap {info['chunk_cap']}: {ms:.4f} ms a block (CUDA events, 20 "
+        f"blocks) against a bound of {b_ms:.4f} ms ({b_by}: {pairs * PREDICT_OPS_PER_PAIR:.4e} "
+        f"float32 operations, {nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.3f}% of it, on {card}")
+    profile_device(f"prediction block at {label}", lambda: block(1.0))
+
+
+def phase_prediction(dev, card: str, sweep) -> None:
+    """Phase 19: the blocked search against the per-image float64 search."""
+    from ffs_tpu_torch.prediction import rotation as rot
+    from ffs_tpu_torch.tools import bench_integrator as bi
+    from ffs_tpu_torch.tools import fuzz_predict
+
+    # (a) phase 7's experiment, both searches
+    expt = eiger_experiment()
+    blocked, t_b = timed(lambda: rot.predict_rotation(expt, device=dev))
+    per_image, t_h = timed(lambda: rot.predict_rotation(expt, use_device=False,
+                                                        chunk=PER_IMAGE_CHUNK, device=dev))
+    px, s1 = prediction_parity("phase 7's experiment", blocked, per_image)
+    say(f"prediction, phase 7's {N_IMAGES} images: {len(blocked.hkl)} reflections, the blocked "
+        f"search {t_b:.3f} s, the per-image float64 search {t_h:.3f} s (chunk 2^22) on {card}; "
+        f"the same "
+        f"reflections, px within {px:.2e}, s1 within {s1:.2e}")
+
+    # (b) the sweep: phase 16b's blocked prediction against the per-image search
+    per_image, t_h = timed(lambda: rot.predict_rotation(sweep.expt, use_device=False,
+                                                        chunk=PER_IMAGE_CHUNK, device=dev))
+    px, s1 = prediction_parity("the sweep", sweep.pred, per_image)
+    say(f"prediction, the {SWEEP_IMAGES}-image sweep: {len(per_image.hkl)} reflections, the "
+        f"blocked search {sweep.seconds:.2f} s ({sweep.blocks} blocks, {sweep.retries} retries; "
+        f"phase 16b) against the per-image float64 search {t_h:.2f} s (chunk 2^22) on {card}: "
+        f"{t_h / sweep.seconds:.1f}x; the same reflections, px within {px:.2e}, s1 within "
+        f"{s1:.2e}")
+
+    # (c) a forced overflow of both capacities: the rows of the unforced run
+    osc0, d_osc = expt.scan.oscillation
+    dmin, hkl = rot._scan_grid(expt, None)
+    with counted_blocks() as runs:
+        forced = rot._predict_rotation_device(expt, rot.ScanVaryingData(), hkl, dmin, d_osc, osc0,
+                                              0, N_IMAGES, cap_per_image=2, device=dev)
+    bad = [name for name in ("hkl", "s1", "xyzcal_px", "xyzcal_mm", "panel", "entering", "flags")
+           if not np.array_equal(getattr(forced, name), getattr(blocked, name))]
+    if bad or len(runs) < 3:
+        fail(f"prediction: the forced overflow ({len(runs)} block runs) differs in {bad}")
+    say(f"prediction, forced overflow (64 candidates a block at first): {len(runs)} block runs, "
+        f"capacities {runs[0]} -> {runs[-1]}; rows equal to the unforced run bit for bit")
+
+    # (d) the fuzz
+    t0 = time.perf_counter()
+    fails = []
+    for seed in range(FUZZ_SEEDS):
+        r = fuzz_predict.run_seed(seed, dev)
+        say(f"prediction fuzz seed {seed}: n={r['n_dev']}/{r['n_host']} "
+            f"px_diff={r.get('px_diff', float('nan')):.2e} {r.get('fail', 'ok')}")
+        fails += ["fail" in r]
+    if any(fails):
+        fail(f"prediction fuzz: {sum(fails)} of {FUZZ_SEEDS} seeds failed")
+    say(f"prediction fuzz: {FUZZ_SEEDS} seeds, 0 failures, {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+
+    # (e) one block's time beside its bound: the bench's grid, the sweep's
+    block_figures("the bench's grid", bi.prediction_experiment(32), dev, card)
+    block_figures("the sweep's grid", eiger_experiment(n_images=32), dev, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU.")
     ap.add_argument("--multi-only", action="store_true",
@@ -2699,7 +2851,7 @@ def main() -> int:
     # the whole sweep's, and the predictor CLI on a scan of the sweep's
     # configuration
     phase_bg_device(dev, card, col, integ_run.acc)
-    phase_bg_device_sweep(dev, card, col.slices / kabsch_s)
+    sweep = phase_bg_device_sweep(dev, card, col.slices / kabsch_s)
     phase_predictor_cli(dev, card)
 
     # phase 17: multi-device, the mesh functions over 2-4 ranks
@@ -2707,6 +2859,9 @@ def main() -> int:
 
     # phase 18: the port's bench, its own process
     launches_bench = phase_bench(card)
+
+    # phase 19: the blocked prediction search against the per-image search
+    phase_prediction(dev, card, sweep)
 
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
@@ -2757,7 +2912,7 @@ def main() -> int:
         }
         for name, (src, replaces) in sources.items()
     ]}
-    say(f"smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s on {card}")
+    say(f"smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s on {card}")
     say(f"card: {card}")
     say(json.dumps(summary))
     say(json.dumps({

@@ -16,12 +16,17 @@ predictions an image, ~4 images deep, 500 images/s):
   detector mask, as ``integrate()`` sets the reader's: the step's outputs
   are the same and the mask windows' gather (TPU kernel row 4) runs.
 - ``kabsch_integrate_effective_slices_per_s``: the block time of a
-  3600-image collection (464 predictions an image) plus prediction
-  (``predict_rotation`` through its API, scaled from a short scan: the port
-  keeps no prediction block to time alone, the JAX tool's own fallback),
-  the device boxes (``compute_kabsch_bounding_boxes_device``), the device
-  Tukey background (``estimate_background_device``) and the device
-  finalisation (``finalize_device``), each on inputs resident on the card
+  3600-image collection (464 predictions an image) plus prediction (the
+  JAX tool's measure: ``PREDICT_REPS`` chained blocks of the blocked
+  two-pass search on one resident packed input of a short scan, each rep's
+  input scaled by 1 + i 1e-15 and every output consumed into one scalar
+  read at the end, scaled to the collection; the packed input holds the
+  scan's own matrices where the JAX tool's holds identities, so the block
+  screens and re-evaluates real candidates; ``predict_rotation``'s API time
+  on the same scan stands beside it as ``predict_api``), the device boxes
+  (``compute_kabsch_bounding_boxes_device``), the device Tukey background
+  (``estimate_background_device``) and the device finalisation
+  (``finalize_device``), each on inputs resident on the card
   and timed through its call, results back on the host; scaled by
   ``FFS_BENCH_INT_EFF_SCALE``.  The fold's parts are printed on a line of
   their own.
@@ -47,12 +52,18 @@ N_IMAGES, PRED_PER_IMAGE, Z_EXTENT = 3600, 464, 4  # the collection of the effec
 CELL = np.diag([57.78, 57.78, 150.0])  # thaumatin
 
 
+def geometry():
+    """(panel, beam) of the JAX tool: an Eiger 4M-sized panel at 200 mm,
+    0.976 A."""
+    return (simple_panel(0.2 * 1000, (W / 2, H / 2), (0.075, 0.075), (W, H)),
+            MonochromaticBeam(wavelength=0.976))
+
+
 def setup(a: int, rng) -> SimpleNamespace:
     """The JAX tool's reflections, in its draw order from ``rng``: ``a``
     random positions 50 px or more inside the panel, s1 through the panel,
     phi in [0, 1) degrees, 21 x 21 boxes over the block's F frames."""
-    panel = simple_panel(0.2 * 1000, (W / 2, H / 2), (0.075, 0.075), (W, H))
-    beam = MonochromaticBeam(wavelength=0.976)
+    panel, beam = geometry()
     x = rng.uniform(50, W - 50, a)
     y = rng.uniform(50, H - 50, a)
     lab = panel.get_lab_coord(*panel.px_to_mm(x, y))
@@ -140,6 +151,70 @@ def _mean_seconds(run: bench.Run, fn, inputs: tuple, reps: int = 4) -> float:
     return (time.perf_counter() - t0) / reps
 
 
+PREDICT_REPS = 8  # chained prediction blocks, as the JAX tool's R
+
+
+def prediction_experiment(span: int):
+    """The fold's prediction set-up: the bench's panel and beam, the
+    thaumatin cell, ``span`` images of 0.1 degrees."""
+    from ..models.crystal import Crystal
+    from ..models.experiment import Experiment
+
+    panel, beam = geometry()
+    return Experiment(beam=beam, panel=panel, goniometer=Goniometer(),
+                      scan=Scan(image_range=(1, span), oscillation=(0.0, 0.1)),
+                      crystal=Crystal(CELL[0], CELL[1], CELL[2]))
+
+
+def prediction_block(expt, device: torch.device):
+    """(block, info) for the blocked prediction search's first block of
+    ``expt``'s scan, its packed states and hkl tables resident on
+    ``device``: ``block(scale)`` runs the block on the states times
+    ``scale`` at the capacities the search settles on for it (its retry
+    rule, applied here first); ``info`` holds those capacities, the
+    block's images, the grid's rows and the candidate counts."""
+    from ..prediction import rotation as rot
+
+    osc0, d_osc = expt.scan.oscillation
+    n_images = expt.scan.image_range[1] - expt.scan.image_range[0] + 1
+    dmin, hkl = rot._scan_grid(expt, None)
+    packed, img_block = rot._packed_states(expt, rot.ScanVaryingData(), n_images, osc0, d_osc, 32)
+    tables, _ = rot._hkl_tables(hkl, 1 << 17, device)
+    p = torch.from_numpy(packed[:img_block]).to(device)
+    cap = img_block * 256
+    chunk_cap = rot._default_chunk_cap(cap)
+    while True:
+        counts = rot._prediction_block(p, tables, cap, chunk_cap, dmin, d_osc)[-1, :2].tolist()
+        if not rot._overflowed(counts, cap, chunk_cap):
+            break
+        cap, chunk_cap = rot._grown(counts, cap, chunk_cap)
+
+    def block(scale: float):
+        return rot._prediction_block(p * scale, tables, cap, chunk_cap, dmin, d_osc)
+
+    info = {"images": img_block, "n_hkl": len(hkl), "n_pad": tables[0].numel() // 3,
+            "cap": cap, "chunk_cap": chunk_cap, "counts": counts}
+    return block, info
+
+
+def predict_block_seconds(run: bench.Run, expt) -> float:
+    """Seconds a block of the blocked prediction search
+    (:func:`prediction_block`), over PREDICT_REPS chained blocks, rep i on
+    the states times 1 + 2e-12 + i 1e-15, after two warm blocks."""
+    block, _ = prediction_block(expt, run.device)
+
+    def chained(scale: float, n: int) -> float:
+        acc = torch.zeros((), dtype=torch.float64, device=run.device)
+        for i in range(n):
+            acc = acc + block(scale + i * 1e-15).nansum()
+        return float(acc)
+
+    chained(1.0 + 1e-12, 2)
+    t0 = time.perf_counter()
+    chained(1.0 + 2e-12, PREDICT_REPS)
+    return (time.perf_counter() - t0) / PREDICT_REPS
+
+
 def effective_rate(run: bench.Run, block_rps: float, s: SimpleNamespace, rng) -> float:
     """Collection slices/s with prediction, boxes, background and
     finalisation folded into the block time (the JAX tool's
@@ -149,7 +224,6 @@ def effective_rate(run: bench.Run, block_rps: float, s: SimpleNamespace, rng) ->
     from ..integration.extent import compute_kabsch_bounding_boxes_device
     from ..integration.finalize import finalize_device
     from ..models.crystal import Crystal
-    from ..models.experiment import Experiment
     from ..prediction.rotation import predict_rotation
 
     n_refl = N_IMAGES * PRED_PER_IMAGE
@@ -160,14 +234,15 @@ def effective_rate(run: bench.Run, block_rps: float, s: SimpleNamespace, rng) ->
     crystal = Crystal(CELL[0], CELL[1], CELL[2])
     scan = Scan(image_range=(1, N_IMAGES), oscillation=(0.0, 0.1))
 
-    # prediction, through its API on a short scan, scaled to the collection
+    # prediction: the API on a short scan, then chained blocks, each scaled
+    # to the collection
     span = max(4, int(32 * scale))
-    expt = Experiment(beam=beam, panel=panel, goniometer=gonio,
-                      scan=Scan(image_range=(1, span), oscillation=(0.0, 0.1)), crystal=crystal)
-    predict_rotation(expt, device=dev)
+    expt = prediction_experiment(span)
+    predict_rotation(expt, device=dev)  # warm, and the hkl tables on the card
     t0 = time.perf_counter()
     pred = predict_rotation(expt, device=dev)
-    t_pred = (time.perf_counter() - t0) * (N_IMAGES / span)
+    t_pred_api = (time.perf_counter() - t0) * (N_IMAGES / span)
+    t_pred = predict_block_seconds(run, expt) * (N_IMAGES / span)
 
     # bounding boxes on the card from resident s1 and phi
     nbb = max(4096, int(262144 * scale))
@@ -226,7 +301,7 @@ def effective_rate(run: bench.Run, block_rps: float, s: SimpleNamespace, rng) ->
     total = t_block + t_pred + t_bbox + t_bg + t_fin
     run.line({"fold_s": {"block": t_block, "predict": t_pred, "bbox": t_bbox,
                          "background": t_bg, "finalize": t_fin, "total": total,
-                         "acquisition": N_IMAGES / 500.0}})
+                         "acquisition": N_IMAGES / 500.0, "predict_api": t_pred_api}})
     return n_slices / total
 
 

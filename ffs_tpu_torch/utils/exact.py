@@ -23,6 +23,26 @@ def dot3(v: torch.Tensor, w) -> torch.Tensor:
     return v[..., 0] * float(w[0]) + v[..., 1] * float(w[1]) + v[..., 2] * float(w[2])
 
 
+def fma_sum3(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Sum over a last axis of 3 of ``v * w`` as the fused chain
+    fma(v2, w2, fma(v1, w1, v0 w0)): how XLA's compiled reductions and
+    batched dots round (``addcmul`` rounds its product and sum once)."""
+    acc = v[..., 0] * w[..., 0]
+    acc = torch.addcmul(acc, v[..., 1], w[..., 1])
+    return torch.addcmul(acc, v[..., 2], w[..., 2])
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float64 tensor, as NumPy and
+    CUDA give it: PyTorch's CPU ``sqrt`` (MKL's vector library) is within
+    an ulp but not always rounded to nearest.  One correction step on the
+    exact residual x - y^2 (one fused multiply-add) rounds it; where
+    ``sqrt`` is already right the step leaves it unchanged."""
+    y = torch.sqrt(x)
+    e = torch.addcmul(x, y, y, value=-1.0)
+    return torch.where(y > 0, torch.addcmul(y, e, 0.5 / y), y)
+
+
 def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """np.cross over the last axis, in NumPy's operation order."""
     a0, a1, a2 = a.unbind(-1)

@@ -229,7 +229,8 @@ def test_bench_smoke_on_cpu():
     assert stages == list(METRICS)  # a launch line before every metric
     fold = next(x["fold_s"] for x in lines if "fold_s" in x)
     assert fold["total"] == pytest.approx(sum(v for k, v in fold.items()
-                                              if k not in ("total", "acquisition")))
+                                              if k not in ("total", "acquisition", "predict_api")))
+    assert fold["predict"] > 0 and fold["predict_api"] > 0
 
 
 def test_bench_stage_that_raises_exits_1_and_the_rest_still_print():

@@ -45,7 +45,7 @@ def collection():
         scan=Scan(image_range=(1, 12), oscillation=(0.0, 1.0)),
         crystal=Crystal([40.0, 0, 0], [0, 50.0, 0], [0, 0, 60.0]),
     )
-    pred = predict_rotation(expt, dmin=4.0, use_device=False)
+    pred = predict_rotation(expt, dmin=4.0)
     x, y, z = pred.xyzcal_px.T
     keep = (x > 20) & (x < 220) & (y > 20) & (y < 240) & (z > 1.5) & (z < 10.5)
     P = types.SimpleNamespace(
@@ -69,16 +69,14 @@ def collection():
 def jax_accumulate(expt, table, reader, algorithm, bg_device=False):
     """The JAX CLI's steps after loading, with its functions, in its order
     (``ffs_tpu/pipeline/integrator.py``: predict, bboxes, min_zeta, clip,
-    KabschIntegrator), predicting with the host float64 search where the
-    CLI takes its device default; ``bg_device`` takes the CLI's
-    ``--bg-device`` bounding boxes."""
+    KabschIntegrator), predicting with its default blocked search;
+    ``bg_device`` takes the CLI's ``--bg-device`` bounding boxes."""
     flags = table.get("flags")
     if flags is not None and ((flags & PREDICTED) != 0).any():
         s1, xyzcal_mm, hkl = table["s1"], table["xyzcal.mm"], table["miller_index"]
         ids = table["id"]
     else:
-        # the port owes the rays of the JAX package's pure-float64 search
-        pred = predict_rotation(expt, use_device=False)
+        pred = predict_rotation(expt)
         s1, xyzcal_mm, hkl = pred.s1, pred.xyzcal_mm, pred.hkl
         ids = np.zeros(len(s1), np.int64)
     phi = xyzcal_mm[:, 2]

@@ -68,60 +68,56 @@ def test_thaumatin_golden(tmp_path, capsys, scan_varying, count, expected):
 # another order) to ~1e-11 of an image: an absolute floor on the frame
 # coordinate (frames) and on the angle (that times 0.1 degree in radians)
 ANGLE_ATOL = {"xyzcal.px": 1e-11, "xyzcal.mm": 1e-14}
+# the JAX package's device-against-host tolerances (tests/test_prediction.py::
+# test_device_block_prediction_matches_host), absolute
+BLOCKED_ATOL = {"s1": 1e-12, "xyzcal.px": 1e-9, "xyzcal.mm": 1e-9}
 
 
-def _sorted(cols):
-    """Rows in (h, k, l, frame) order, the key of the JAX package's own
-    device-against-host prediction test."""
-    hkl, xyz = cols["miller_index"].reshape(-1, 3), cols["xyzcal.px"].reshape(-1, 3)
-    order = np.lexsort((xyz[:, 2], hkl[:, 2], hkl[:, 1], hkl[:, 0]))
-    return {k: v[order] for k, v in cols.items()}
-
-
-@pytest.mark.parametrize("argv", [[], ["--force_static", "-b", "2", "--dmin", "2.5"]])
-@pytest.mark.parametrize("scan_varying", [False, True])
-def test_predicted_refl_matches_the_jax_cli(tmp_path, monkeypatch, argv, scan_varying):
-    """Column for column against the JAX CLI on its pure-float64 search
-    (the port's search: same rows in the same order, floats within 1e-12
-    relative, angles above ANGLE_ATOL); against its default device search the same rows, in that
-    search's block order, within the JAX package's own device-against-host
-    tolerances (tests/test_prediction.py::
-    test_device_block_prediction_matches_host)."""
-    import functools
-
-    from ffs_tpu.prediction import rotation as jrot
-
-    if scan_varying and "-b" in argv:
-        argv = ["--force_static", "--dmin", "2.5"]
-    expt = _write(tmp_path, _scan_varying() if scan_varying else _thaumatin_expt())
-    paths = {k: str(tmp_path / f"{k}.refl") for k in ("port", "jax", "jax_f64")}
-    assert tpredictor.run(["-e", expt, "--output", paths["port"], *argv]) == 0
-    assert jpredictor.run(["-e", expt, "--output", paths["jax"], *argv]) == 0
-    monkeypatch.setattr(jrot, "predict_rotation",
-                        functools.partial(jrot.predict_rotation, use_device=False))
-    assert jpredictor.run(["-e", expt, "--output", paths["jax_f64"], *argv]) == 0
-    got, got_attrs = _read(paths["port"])
-    want, want_attrs = _read(paths["jax_f64"])
+def _assert_columns(got, want, tol):
+    """Every column, in order: floats within ``tol(name)`` (rtol, atol),
+    the rest equal."""
     assert list(got) == list(want)
     assert len(want["miller_index"]) > 50
     for name, b in want.items():
         a = got[name]
         assert a.dtype == b.dtype and a.shape == b.shape, name
         if np.issubdtype(b.dtype, np.floating):
-            np.testing.assert_allclose(a, b, rtol=1e-12, atol=ANGLE_ATOL.get(name, 0.0),
-                                       err_msg=name)
+            rtol, atol = tol(name)
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)
         else:
             np.testing.assert_array_equal(a, b, err_msg=name)
-    for attrs in (want_attrs, _read(paths["jax"])[1]):
+
+
+@pytest.mark.parametrize("argv", [[], ["--force_static", "-b", "2", "--dmin", "2.5"]])
+@pytest.mark.parametrize("scan_varying", [False, True])
+def test_predicted_refl_matches_the_jax_cli(tmp_path, monkeypatch, argv, scan_varying):
+    """Column for column, row for row, against the JAX CLI's default run
+    (both on the blocked search: the same rows in the same order, within
+    the JAX package's own device-against-host tolerances), and against its
+    pure-float64 search with the port's (``use_device=False`` on both
+    sides: floats within 1e-12 relative, angles above ANGLE_ATOL)."""
+    import functools
+
+    from ffs_tpu.prediction import rotation as jrot
+    from ffs_tpu_torch.prediction import rotation as trot
+
+    if scan_varying and "-b" in argv:
+        argv = ["--force_static", "--dmin", "2.5"]
+    expt = _write(tmp_path, _scan_varying() if scan_varying else _thaumatin_expt())
+    paths = {k: str(tmp_path / f"{k}.refl") for k in ("port", "jax", "port_f64", "jax_f64")}
+    assert tpredictor.run(["-e", expt, "--output", paths["port"], *argv]) == 0
+    assert jpredictor.run(["-e", expt, "--output", paths["jax"], *argv]) == 0
+    for rot, cli, name in ((jrot, jpredictor, "jax_f64"), (trot, tpredictor, "port_f64")):
+        monkeypatch.setattr(rot, "predict_rotation",
+                            functools.partial(rot.predict_rotation, use_device=False))
+        assert cli.run(["-e", expt, "--output", paths[name], *argv]) == 0
+    (got, got_attrs), (want, want_attrs) = _read(paths["port"]), _read(paths["jax"])
+    _assert_columns(got, want, lambda name: (0.0, BLOCKED_ATOL[name]))
+    _assert_columns(_read(paths["port_f64"])[0], _read(paths["jax_f64"])[0],
+                    lambda name: (1e-12, ANGLE_ATOL.get(name, 0.0)))
+    for attrs in (want_attrs, _read(paths["jax_f64"])[1]):
         assert list(got_attrs["identifiers"]) == list(attrs["identifiers"])
         np.testing.assert_array_equal(got_attrs["experiment_ids"], attrs["experiment_ids"])
-
-    got, dev = _sorted(got), _sorted(_read(paths["jax"])[0])
-    assert list(got) == list(dev)
-    for name in ("miller_index", "panel", "entering", "flags", "id"):
-        np.testing.assert_array_equal(got[name], dev[name], err_msg=name)
-    np.testing.assert_allclose(got["xyzcal.px"], dev["xyzcal.px"], rtol=0, atol=1e-9)
-    np.testing.assert_allclose(got["s1"], dev["s1"], rtol=0, atol=1e-12)
 
 
 def _no_crystal():
