@@ -154,7 +154,20 @@ import).  Phases, each of which fails the run:
    for bit; the port's fuzz over 8 seeds; one block's CUDA-event ms at the
    bench's grid and at the sweep's beside its bound (float32 operations,
    58 a pair, or compulsory bytes), with the profiler's busy share and
-   kernels.
+   kernels;
+20. the port's checking tools — (a) ``tools/fuzz_spotfind``: 20 seeds of
+   the JAX tool's pool (two a configuration), seeds 319 and 346 (their
+   batch centroids once differed by an ulp) and 10 of the edge pool (the
+   walkers' tiling edges), kernel path against dense path, batch against
+   per frame, planes against frames; (b) ``tools/fuzz_integrator``: seeds
+   0-5 (three panels x two algorithms), all eight accumulators equal the
+   float64 oracle's; (c) ``tools/bench_collection`` in a process of its own
+   at ``FFS_COLL_FRAMES=16`` (``COLLECTION_ENV``), the three modes through
+   the CLI: exit 0, no fallback, host and device decode bit-equal, the
+   stage split and the upload share.  Any failing seed fails the phase.
+   Each part's seconds and the launches of TPU kernel rows 1-5 it made
+   (the kernels line's ``tools_launches``; the collection's summed over
+   its CLI runs).
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -2735,6 +2748,92 @@ def phase_prediction(dev, card: str, sweep) -> None:
     block_figures("the sweep's grid", eiger_experiment(n_images=32), dev, card)
 
 
+# phase 20: the checking tools of the port's main path on the card (the JAX
+# package's tools/fuzz_spotfind.py, fuzz_integrator.py, bench_collection.py)
+FUZZ_SPOTFIND_SEEDS, FUZZ_EDGE_SEEDS, FUZZ_INTEGRATOR_SEEDS = 20, 10, 6
+# seeds whose batch and per-frame centroids once differed on the card
+# (float32 atomic sums in another order; ops/connected_components.py)
+FUZZ_PINNED_SEEDS = (319, 346)
+COLLECTION_ENV = {"FFS_COLL_FRAMES": "16"}
+
+
+def phase_tools(dev, card: str) -> dict:
+    """Phase 20: both fuzzers in-process, the collection bench in a process
+    of its own; returns the launches of kernel rows 1-5 the three made."""
+    import torch
+
+    from ffs_tpu_torch.bench import kernel_wrappers
+    from ffs_tpu_torch.tools import fuzz_integrator, fuzz_spotfind
+
+    wrappers = kernel_wrappers()
+    total = dict.fromkeys(wrappers, 0)
+
+    def counted(label: str, fn) -> None:
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        failures = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {name: w.launches for name, w in wrappers.items()}
+        for name, n in got.items():
+            total[name] += n
+        if failures:
+            fail(f"{label}: {failures} failures")
+        say(f"tools, {label}: 0 failures, {seconds:.1f} s on {card}, launches {got}")
+
+    # (a) the spotfinder fuzz, the JAX pool and the edge pool
+    seeds = [*range(FUZZ_SPOTFIND_SEEDS), *FUZZ_PINNED_SEEDS]
+    counted(f"fuzz_spotfind seeds 0-{FUZZ_SPOTFIND_SEEDS - 1} and {FUZZ_PINNED_SEEDS}",
+            lambda: fuzz_spotfind.run_seeds(seeds, dev))
+    for line in fuzz_spotfind.edge_tilings(dev):
+        say(f"tools, walker tiling {line}")
+    counted(f"fuzz_spotfind --edges {FUZZ_EDGE_SEEDS} seeds",
+            lambda: fuzz_spotfind.run_seeds(range(FUZZ_EDGE_SEEDS), dev, edges=True))
+    # (b) the integrator fuzz: three panels x two algorithms
+    counted(f"fuzz_integrator {FUZZ_INTEGRATOR_SEEDS} seeds",
+            lambda: fuzz_integrator.run_seeds(range(FUZZ_INTEGRATOR_SEEDS), dev, verbose=False))
+
+    # (c) the collection through the CLI, its own process
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FFS_TORCH_DEVICE", "FFS_TORCH_KERNEL_PATH", "FFS_COLL_MODES",
+                        "FFS_COLL_BATCH")}
+    env.update(COLLECTION_ENV)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ffs_tpu_torch.tools.bench_collection"], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    for text in r.stdout.splitlines():
+        say(f"collection: {text}")
+    if r.returncode != 0:
+        print(r.stderr[-6000:], file=sys.stderr)
+        fail(f"bench_collection exited {r.returncode}")
+    lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    metrics = {x["metric"]: x for x in lines if "metric" in x}
+    modes = ("collection_end_to_end_fps_f64_default", "collection_end_to_end_fps_host_decode",
+             "collection_end_to_end_fps_device_decode")
+    for name in modes:
+        x = metrics.get(name)
+        if x is None or x["device"] != card or not x["value"] > 0:
+            fail(f"collection line {name}: {x} is not a measurement on {card}")
+        for k, n in x["launches"].items():
+            total[k] += n
+    if not any(x.get("check") == "host_vs_device_decode" and x["ok"] for x in lines):
+        fail("collection: no host-against-device check")
+    if not {"collection_stage_split_ms_mean", "collection_upload_share"} <= set(metrics):
+        fail(f"collection: no stage split or upload share in {sorted(metrics)}")
+    for name in ("dispersion_packed", "bitshuffle_frames"):
+        if not metrics[modes[2]]["launches"][name]:
+            fail(f"collection: the device-decode run never launched {name}")
+    say(f"tools, bench_collection {COLLECTION_ENV}: exit 0, three modes, host and device decode "
+        f"bit-equal, {seconds:.1f} s on {card}")
+    for name, n in total.items():
+        if n == 0:
+            fail(f"phase 20 never launched {name}")
+    say(f"tools: launches of rows 1-5 in phase 20 {total}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU.")
     ap.add_argument("--multi-only", action="store_true",
@@ -2863,6 +2962,12 @@ def main() -> int:
     # phase 19: the blocked prediction search against the per-image search
     phase_prediction(dev, card, sweep)
 
+    # phase 20: the checking tools of the main path (both fuzzers, the
+    # collection through the CLI)
+    t20 = time.perf_counter()
+    launches_tools = phase_tools(dev, card)
+    say(f"phase 20: {time.perf_counter() - t20:.1f} s on {card}")
+
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
@@ -2909,10 +3014,11 @@ def main() -> int:
             "library_ms": figures[name]["library_ms"],
             "multi_launches": launches_multi.get(name),
             "bench_launches": launches_bench.get(name),
+            "tools_launches": launches_tools.get(name),
         }
         for name, (src, replaces) in sources.items()
     ]}
-    say(f"smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s on {card}")
+    say(f"smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s on {card}")
     say(f"card: {card}")
     say(json.dumps(summary))
     say(json.dumps({

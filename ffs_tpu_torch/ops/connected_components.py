@@ -166,9 +166,13 @@ def spot_table_from_pixels(
     Spot ids follow the raster order of the roots; spots past ``max_spots``
     fall into a dropped overflow segment (callers check ``n_spots``).  The
     per-spot sums accumulate in slot order on the CPU, as XLA's CPU
-    segment_sum does; on a GPU the order of the atomic adds varies, which
-    leaves the integer-valued float64 sums exact but may move the last bit
-    of a float32 weighted sum.
+    segment_sum does.  On a GPU the order of the atomic adds varies, so
+    there the float32 terms (integer-valued: each product is rounded to
+    float32 first, as on the CPU) add up in float64, exactly while a sum
+    stays below 2^53, and round to float32 once: the same sums whatever
+    the order, so that a frame's table does not depend on the run or on
+    the batch it came in.  Where every partial sum is an integer below
+    2^24 this is the CPU's result bit for bit.
     """
     lin = pixels.linear_index
     k = lin.shape[0]
@@ -199,8 +203,9 @@ def spot_table_from_pixels(
         dim=1,
     )
     cols = torch.where(in_spot[:, None], cols, torch.zeros((), dtype=dtype, device=dev))
-    fsum = torch.zeros((max_spots + 1, 4), dtype=dtype, device=dev).index_add_(0, sid, cols)
-    fsum = fsum[:max_spots]
+    acc = torch.float64 if dev.type == "cuda" else dtype  # order-free sums on the card
+    fsum = torch.zeros((max_spots + 1, 4), dtype=acc, device=dev).index_add_(0, sid, cols.to(acc))
+    fsum = fsum[:max_spots].to(dtype)
     n_pixels = fsum[:, 0].to(torch.int32)
     sum_i, sum_ix, sum_iy = fsum[:, 1], fsum[:, 2], fsum[:, 3]
 
