@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the spotfinder, the
-integrator (with ``--bg-device``), the predictor CLI, the indexers and the
-bench.
+integrator (with ``--bg-device``), the predictor CLI, the indexers, the
+bench and the beamline chain (spotfinder, rotation indexer, integrator).
 
     python3 chip_smoke.py
 
@@ -167,7 +167,32 @@ import).  Phases, each of which fails the run:
    stage split and the upload share.  Any failing seed fails the phase.
    Each part's seconds and the launches of TPU kernel rows 1-5 it made
    (the kernels line's ``tools_launches``; the collection's summed over
-   its CLI runs).
+   its CLI runs);
+21. the beamline chain — ``tests/test_full_chain_16m.py``'s recipe on the
+   card: a seeded rotation of a 52 x 61 x 73 A crystal at Eiger 16M (ten
+   1-degree images to dmin 3.2, Poisson(2) frames, a Gaussian spot of
+   9000-30000 counts at each prediction, rendered with NumPy), each frame
+   bitshuffle-LZ4 by the port's codec into a /dev/shm-style dump whose
+   header carries omega; then, once with the service's default stage 1 (f64,
+   ``--threads``, the 3D table) and once with ``--precision f32 --batch 8
+   --decode-backend device`` (a batch of 8 and a tail of 2): the
+   ``spotfinder`` CLI, the rotation indexer CLI (``--max-cell 90``) on its
+   table, the integrator's core (``integrate_experiment`` over an
+   ``SHMRead`` of the dump) with the indexed model.  Tables pass through
+   files where h5py exists, else they are held in memory (the line says
+   which).  Gates, each mode: the injected spots found (> 85%), the cell
+   (edges within rtol 8e-3, angles within 0.6 degree), the injections
+   integrated (> 60%), and on interior, isolated, phi-consistent
+   reflections more than 100 comparable, correlation > 0.95 and median
+   relative error < 0.05; image 4's strong pixels in the f64 run equal the
+   boxed f64 oracle (``ops/reference.py``), the f32 count printed beside
+   it.  Prints each stage's seconds, the chain's total from the dump's
+   last frame to the integrated table, and the launches of rows 1-5 in the
+   phase (the kernels line's ``chain_launches``); rows 1, 3, 4 and 5 must
+   be above 0;
+22. the indexer's robustness — ``ffs_tpu_torch.tools.indexer_robustness``'s
+   ``clean_ortho`` and ``second_lattice`` at seed 7 must index to its 1%
+   gate (the full 8-case x 5-seed campaign is the tool's own run).
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -998,16 +1023,18 @@ def phase_decode(dev, sample_planes: np.ndarray):
     return {"bitshuffle_frames": times["u16 x4"]}
 
 
-def write_shm_dir(root: pathlib.Path, chunks: list[bytes], mask: np.ndarray) -> pathlib.Path:
+def write_shm_dir(root: pathlib.Path, chunks: list[bytes], mask: np.ndarray,
+                  **geometry) -> pathlib.Path:
     """A /dev/shm-style stream dump (io/shm.py's layout) of compressed u16
-    Eiger 16M frames: a still collection, the sample mask as start_5."""
-    h, w = SIDE
+    frames of ``mask``'s shape, ``mask`` as start_5: a still collection
+    unless ``geometry`` (header keys over the defaults) gives it an omega."""
+    h, w = mask.shape
     header = {
         "nimages": len(chunks), "ntrigger": 1, "y_pixels_in_detector": h,
         "x_pixels_in_detector": w, "bit_depth_image": 16,
         "countrate_correction_count_cutoff": 65535, "wavelength": 0.976,
         "detector_distance": 500.0, "y_pixel_size": 7.5e-05, "x_pixel_size": 7.5e-05,
-        "beam_center_y": h / 2, "beam_center_x": w / 2,
+        "beam_center_y": h / 2, "beam_center_x": w / 2, **geometry,
     }
     (root / "start_1").write_text(json.dumps(header))
     (root / "start_4").write_text("{}")
@@ -2834,6 +2861,288 @@ def phase_tools(dev, card: str) -> dict:
     return total
 
 
+# phase 21: the beamline chain of tests/test_full_chain_16m.py on the card: a
+# rotation of a 52 x 61 x 73 A crystal on an Eiger 16M at 180 mm, lambda 0.976
+# A, ten 1-degree images predicted to dmin 3.2, Poisson(2) frames with a
+# Gaussian spot of 9000-30000 counts at each prediction (the JAX test's seed,
+# rendered here with NumPy), bitshuffle-LZ4 in a /dev/shm-style dump whose
+# header carries the omega that makes the CLI take the rotation path (3D merge)
+CHAIN_CELL = (52.0, 61.0, 73.0)
+CHAIN_IMAGES, CHAIN_SEED, CHAIN_DMIN = 10, 23, 3.2
+CHAIN_DIST_MM, CHAIN_WAVELENGTH, CHAIN_PIXEL_MM = 180.0, 0.976, 0.075
+CHAIN_SXY, CHAIN_SZ = 1.4, 1.1  # spot sigma: pixels, images
+CHAIN_SIDE = SIDE
+CHAIN_CHECK_IMAGE = 4  # the image whose strong pixels the f64 oracle counts
+# stage 1: the service's default (f64, per frame, host decode), then the f32
+# kernel path in a batch of 8 and a tail of 2 with device decode
+CHAIN_MODES = {
+    "f64": [],
+    "f32": ["--precision", "f32", "--batch", "8", "--decode-backend", "device"],
+}
+CHAIN_INDEX_ARGS = ["--max-cell", "90"]
+# the chain's kernels: TPU kernel rows 1 and 5 in the f32 stage 1, 3 and 4 in
+# the integrator
+CHAIN_KERNELS = ("dispersion_packed", "bitshuffle_frames", "window_gather_planes",
+                 "window_gather")
+
+
+def chain_experiment(with_crystal: bool):
+    """tests/test_full_chain_16m.py's experiment, on the port's models."""
+    from ffs_tpu_torch.models.crystal import Crystal
+    from ffs_tpu_torch.models.experiment import Experiment
+    from ffs_tpu_torch.models.geometry import Goniometer, MonochromaticBeam, Scan, simple_panel
+
+    c, s = np.cos(0.35), np.sin(0.35)
+    r1 = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    c, s = np.cos(0.2), np.sin(0.2)
+    r2 = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    basis = (r2 @ r1) * np.asarray(CHAIN_CELL)[:, None]
+    h, w = CHAIN_SIDE
+    return Experiment(
+        beam=MonochromaticBeam(wavelength=CHAIN_WAVELENGTH),
+        panel=simple_panel(CHAIN_DIST_MM, (w / 2.0, h / 2.0), (CHAIN_PIXEL_MM, CHAIN_PIXEL_MM),
+                           (w, h)),
+        goniometer=Goniometer(),
+        scan=Scan(image_range=(1, CHAIN_IMAGES), oscillation=(0.0, 1.0)),
+        crystal=Crystal(basis[0], basis[1], basis[2]) if with_crystal else None,
+    )
+
+
+def chain_frames(xyz: np.ndarray, rng) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX test's frames: Poisson(2) plus a Gaussian spot a prediction
+    (15 x 15 px, up to 11 images); returns (u16 frames, photons injected a
+    spot)."""
+    h, w = CHAIN_SIDE
+    frames = rng.poisson(2.0, size=(CHAIN_IMAGES, h, w)).astype(np.float64)
+    injected = np.zeros(len(xyz))
+    wxy, wz = 7, 5
+    for i, (px, py, pz) in enumerate(xyz):
+        amp = 9000.0 + 21000.0 * ((i * 2654435761) % 1000) / 1000.0
+        x0, x1 = int(px) - wxy, int(px) + wxy + 1
+        y0, y1 = int(py) - wxy, int(py) + wxy + 1
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        g2 = np.exp(-(((xx - px) ** 2 + (yy - py) ** 2) / (2 * CHAIN_SXY**2)))
+        g2 /= 2 * np.pi * CHAIN_SXY**2
+        for z in range(max(0, int(pz) - wz), min(CHAIN_IMAGES, int(pz) + wz + 1)):
+            fz = np.exp(-((z - pz) ** 2) / (2 * CHAIN_SZ**2)) / (np.sqrt(2 * np.pi) * CHAIN_SZ)
+            spot = amp * fz * g2
+            frames[z, y0:y1, x0:x1] += spot
+            injected[i] += spot.sum()
+    return np.round(frames).astype(np.uint16), injected
+
+
+@contextlib.contextmanager
+def held_tables():
+    """Where h5py is missing, ``ReflectionTable.write`` keeps the table in
+    memory under its path and ``ReflectionTable.read`` returns it, so the
+    CLIs hand their tables on as they would through files; yields how."""
+    from ffs_tpu_torch.models.reflection_table import ReflectionTable
+
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        yield "through files"
+        return
+    held: dict = {}
+    saved = ReflectionTable.__dict__["write"], ReflectionTable.__dict__["read"]
+    ReflectionTable.write = lambda self, path, *a, **kw: held.__setitem__(os.path.abspath(path),
+                                                                           self)
+    ReflectionTable.read = classmethod(lambda cls, path, *a, **kw: held[os.path.abspath(path)])
+    try:
+        yield "held in memory: no h5py on this machine"
+    finally:
+        ReflectionTable.write, ReflectionTable.read = saved
+
+
+def chain_gates(obs, cell, columns: dict, xyz, injected) -> tuple[dict, list[str]]:
+    """tests/test_full_chain_16m.py's ground-truth gates on a chain's strong
+    spots ``obs``, indexed ``cell`` and integrated ``columns``; returns
+    (figures, the gates missed)."""
+    from ffs_tpu_torch.models.reflection_table import INTEGRATED_SUM
+
+    fig, bad = {}, []
+    # stage 1: the injected spots found as 3D spots
+    d = np.linalg.norm(obs[:, None, :2] - xyz[None, :, :2], axis=-1)
+    dz = np.abs(obs[:, None, 2] - xyz[None, :, 2])
+    fig["found"] = float(((d < 2.0) & (dz < 1.5)).any(axis=0).mean())
+    if not fig["found"] > 0.85:
+        bad.append(f"found {fig['found']:.3f} of the injected spots, not > 0.85")
+    # stage 2: the cell
+    cell = np.asarray(cell)
+    fig["cell"] = [round(float(v), 4) for v in cell]
+    edges = np.sort(cell[:3])
+    if not (np.abs(edges - CHAIN_CELL) <= 8e-3 * np.asarray(CHAIN_CELL)).all():
+        bad.append(f"cell edges {edges} not within rtol 8e-3 of {CHAIN_CELL}")
+    if not (np.abs(cell[3:] - 90.0) <= 0.6).all():
+        bad.append(f"cell angles {cell[3:]} not within 0.6 degree of 90")
+    # stage 3: coverage, then the intensities of interior, isolated
+    # reflections whose model phi agrees with the injection's
+    valid = (columns["flags"] & np.uint64(INTEGRATED_SUM)) != 0
+    inten = columns["intensity.sum.value"]
+    oxyz = columns["xyzobs.px.value"]
+    phical = np.rad2deg(columns["xyzcal.mm"][:, 2])  # 1 degree an image
+    dxy = np.linalg.norm(oxyz[:, None, :2] - xyz[None, :, :2], axis=-1)
+    dzz = np.abs(oxyz[:, None, 2] - xyz[None, :, 2])
+    fig["integrated"] = float(((dxy < 2.5) & (dzz < 1.8) & valid[:, None]).any(axis=0).mean())
+    if not fig["integrated"] > 0.6:
+        bad.append(f"integrated {fig['integrated']:.3f} of the injections, not > 0.6")
+    zcal_ok = np.abs(phical[:, None] - xyz[None, :, 2] - 0.5) < 0.75
+    cand = (dxy < 2.0) & zcal_ok & valid[:, None]
+    rows = cand.any(axis=0)
+    pick = np.where(cand, dxy, np.inf).argmin(axis=0)
+    near = ((np.linalg.norm(xyz[:, None, :2] - xyz[None, :, :2], axis=-1) < 12.0)
+            & (np.abs(xyz[:, None, 2] - xyz[None, :, 2]) < 7.0))
+    np.fill_diagonal(near, False)
+    interior = rows & ~near.any(axis=1) & (xyz[:, 2] > 3.2) & (xyz[:, 2] < CHAIN_IMAGES - 3.2)
+    got, want = inten[pick[interior]], injected[interior]
+    fig["comparable"] = int(interior.sum())
+    fig["correlation"] = float(np.corrcoef(got, want)[0, 1]) if len(got) > 1 else float("nan")
+    fig["median_rel_err"] = float(np.median(np.abs(got - want) / want)) if len(got) else float("nan")
+    if not fig["comparable"] > 100:
+        bad.append(f"{fig['comparable']} comparable reflections, not > 100")
+    if not fig["correlation"] > 0.95:
+        bad.append(f"intensity correlation {fig['correlation']:.4f}, not > 0.95")
+    if not fig["median_rel_err"] < 0.05:
+        bad.append(f"median relative error {fig['median_rel_err']:.4f}, not < 0.05")
+    return fig, bad
+
+
+def phase_chain(dev, card: str) -> dict:
+    """Phase 21: spotfinder -> rotation indexer -> integrator at Eiger 16M
+    through the CLIs and their handoffs, under tests/test_full_chain_16m.py's
+    gates, once for each stage-1 mode; returns the launches of TPU kernel
+    rows 1-5 in the phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ffs_tpu_torch.bench import kernel_wrappers
+    from ffs_tpu_torch.io import compression
+    from ffs_tpu_torch.io.shm import SHMRead
+    from ffs_tpu_torch.models.experiment import Experiment
+    from ffs_tpu_torch.models.reflection_table import ReflectionTable
+    from ffs_tpu_torch.ops import reference
+    from ffs_tpu_torch.pipeline import indexer
+    from ffs_tpu_torch.pipeline.integrator import integrate_experiment
+    from ffs_tpu_torch.prediction.rotation import parse_scan_varying, predict_rotation
+
+    t0 = time.perf_counter()
+    h, w = CHAIN_SIDE
+    pred = predict_rotation(chain_experiment(with_crystal=True), dmin=CHAIN_DMIN,
+                            use_device=False, device=dev)
+    x, y, z = pred.xyzcal_px.T
+    keep = ((x > 30) & (x < w - 30) & (y > 30) & (y < h - 30)
+            & (z > 2.5) & (z < CHAIN_IMAGES - 2.5))
+    xyz = pred.xyzcal_px[keep]
+    if len(xyz) <= 150:
+        fail(f"chain: {len(xyz)} predictions, the fixture needs more than 150")
+    frames, injected = chain_frames(xyz, np.random.default_rng(CHAIN_SEED))
+    mask = np.ones((h, w), np.uint8)
+    # the codec (native, off the GIL) on a thread a frame, the oracle beside it
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        counted = pool.submit(reference.dispersion, frames[CHAIN_CHECK_IMAGE], mask, 65535.0)
+        chunks = list(pool.map(lambda f: bytes(compression.bshuf_lz4_compress(f, 2)), frames))
+        oracle = int(counted.result().sum())
+    say(f"chain: {CHAIN_IMAGES} images of {h} x {w} u16, {len(xyz)} injected spots, "
+        f"{sum(map(len, chunks)) / 1e6:.1f} MB of bitshuffle-LZ4; f64 oracle: {oracle} strong "
+        f"pixels on image {CHAIN_CHECK_IMAGE}; set-up {time.perf_counter() - t0:.1f} s")
+
+    wrappers = kernel_wrappers()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    threads = str(min(os.cpu_count() or 1, 40))
+    cwd = os.getcwd()
+    strong_px = {}
+    with tempfile.TemporaryDirectory(prefix="ffs_smoke_chain_") as tmp, held_tables() as how:
+        root = pathlib.Path(tmp)
+        (root / "shm").mkdir()
+        dump = write_shm_dir(root / "shm", chunks, mask, wavelength=CHAIN_WAVELENGTH,
+                             detector_distance=CHAIN_DIST_MM, omega_start=0.0,
+                             omega_increment=1.0)
+        imported = root / "imported.expt"
+        chain_experiment(with_crystal=False).save(str(imported))
+        for mode, extra in CHAIN_MODES.items():
+            (root / mode).mkdir()
+            os.chdir(root / mode)
+            try:
+                # stage 1: the spotfinder CLI on the dump, its 3D table
+                rc, log, lines, t_spot = run_cli([str(dump), "--threads", threads, "--save-h5",
+                                                  *extra])
+                if rc != 0 or "Successfully wrote 3D reflections" not in log:
+                    print(log[-4000:])
+                    fail(f"chain {mode}: the spotfinder exited {rc} without a 3D table")
+                if "Device: cuda" not in log or "unavailable" in log:
+                    print(log[-4000:])
+                    fail(f"chain {mode}: the spotfinder did not run its path on the card")
+                strong_px[mode] = {ln["file-number"]: ln["num_strong_pixels"] for ln in lines}
+                obs = np.asarray(ReflectionTable.read("results_ffs.h5")["xyzobs.px.value"])
+                # stage 2: the rotation indexer CLI on that table
+                buf = io.StringIO()
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = indexer.run(["-e", str(imported), "-r", "results_ffs.h5",
+                                      *CHAIN_INDEX_ARGS])
+                t_index = time.perf_counter() - t1
+                if rc != 0 or "Saved experiment list to indexed.expt" not in buf.getvalue():
+                    print(buf.getvalue()[-4000:])
+                    fail(f"chain {mode}: the indexer exited {rc} without a crystal")
+                # stage 3: the integrator's core with the indexed model, over the dump
+                expt = Experiment.load("indexed.expt")
+                with open("indexed.expt") as f:
+                    sv = parse_scan_varying(json.load(f), CHAIN_IMAGES)
+                table = ReflectionTable.read("indexed.refl")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    run, t_integ = timed(lambda: integrate_experiment(
+                        expt, table, SHMRead(str(dump)), device=dev, sv=sv))
+            finally:
+                os.chdir(cwd)
+            fig, bad = chain_gates(obs, expt.crystal.unit_cell, run.columns, xyz, injected)
+            say(f"chain {mode} ({' '.join(extra) or 'the default'}): {len(obs)} strong spots, "
+                f"{len(run.columns['flags'])} integrated rows, {json.dumps(fig)}")
+            say(f"chain {mode}: spotfinder {t_spot:.2f} s, indexer {t_index:.2f} s, integrator "
+                f"{t_integ:.2f} s; from the dump's last frame to the integrated table "
+                f"{t_spot + t_index + t_integ:.2f} s on {card} (handoffs {how})")
+            if bad:
+                fail(f"chain {mode}: " + "; ".join(bad))
+    got = strong_px["f64"].get(CHAIN_CHECK_IMAGE)
+    f32 = strong_px["f32"].get(CHAIN_CHECK_IMAGE)
+    say(f"chain: image {CHAIN_CHECK_IMAGE} strong pixels: f64 {got}, the f64 oracle {oracle}, "
+        f"f32 {f32} ({f32 - oracle:+d} against the oracle)")
+    if got != oracle:
+        fail(f"chain f64: image {CHAIN_CHECK_IMAGE} has {got} strong pixels, the oracle {oracle}")
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    say(f"chain: launches of rows 1-5 in phase 21 {launches}")
+    for name in CHAIN_KERNELS:
+        if not launches[name]:
+            fail(f"phase 21 never launched {name}")
+    return launches
+
+
+# phase 22: two cases of the rotation indexer's robustness campaign
+# (ffs_tpu_torch/tools/indexer_robustness.py) at a seed outside the
+# campaign's 0-4, as tests/test_indexer_robust.py takes them
+ROBUSTNESS_CASES, ROBUSTNESS_SEED = ("clean_ortho", "second_lattice"), 7
+
+
+def phase_robustness(card: str) -> None:
+    """Phase 22: each case must index to the tool's 1% gate."""
+    from ffs_tpu_torch.tools import indexer_robustness
+
+    say(f"robustness: route {indexer_robustness.route()}")
+    for case in ROBUSTNESS_CASES:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ok = indexer_robustness.run_case(case, ROBUSTNESS_SEED, verbose=True)
+        seconds = time.perf_counter() - t0
+        if not ok:
+            print(buf.getvalue()[-4000:])
+            fail(f"robustness: {case} seed {ROBUSTNESS_SEED} did not index within 1%")
+        say(f"robustness: {case} seed {ROBUSTNESS_SEED} indexed within 1% in {seconds:.1f} s "
+            f"on {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU.")
     ap.add_argument("--multi-only", action="store_true",
@@ -2968,6 +3277,17 @@ def main() -> int:
     launches_tools = phase_tools(dev, card)
     say(f"phase 20: {time.perf_counter() - t20:.1f} s on {card}")
 
+    # phase 21: the beamline chain at Eiger 16M (spotfinder, rotation
+    # indexer, integrator), f64 and f32 stage 1
+    t21 = time.perf_counter()
+    launches_chain = phase_chain(dev, card)
+    say(f"phase 21: {time.perf_counter() - t21:.1f} s on {card}")
+
+    # phase 22: two cases of the rotation indexer's robustness campaign
+    t22 = time.perf_counter()
+    phase_robustness(card)
+    say(f"phase 22: {time.perf_counter() - t22:.1f} s on {card}")
+
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
@@ -3015,10 +3335,11 @@ def main() -> int:
             "multi_launches": launches_multi.get(name),
             "bench_launches": launches_bench.get(name),
             "tools_launches": launches_tools.get(name),
+            "chain_launches": launches_chain.get(name),
         }
         for name, (src, replaces) in sources.items()
     ]}
-    say(f"smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s on {card}")
+    say(f"smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s on {card}")
     say(f"card: {card}")
     say(json.dumps(summary))
     say(json.dumps({

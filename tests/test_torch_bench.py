@@ -194,8 +194,11 @@ def test_ssx_stills_equal_jax_tool():
 
 
 def _bench_env(**extra):
+    # one OpenMP thread: the smoke's toy shapes gain nothing from more, and
+    # with the suite's other workers on every core a team of threads waits
+    # at each op's barrier (the smoke took ~25x its time alone)
     env = {k: v for k, v in os.environ.items() if not k.startswith("FFS_")}
-    env.update(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO), **extra)
+    env.update(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", **extra)
     return env
 
 
@@ -233,21 +236,44 @@ def test_bench_smoke_on_cpu():
     assert fold["predict"] > 0 and fold["predict_api"] > 0
 
 
+# a stage's isolation, not the stages themselves: every other stage is a stub
+# that prints its launches and metric lines as the real one does
+STUB_STAGES = """
+import sys
+import ffs_tpu_torch.bench as b
+from ffs_tpu_torch.tools import bench_integrator, bench_ssx
+
+def stub(*metrics):
+    def stage(run, *frames):
+        for metric in metrics:
+            fields = run.emit(metric, 1.0, "stub", 1.0, since=run.counts())
+            if metric == "eiger16m_spotfind_fps":
+                run.eiger_line = fields
+    return stage
+
+def boom(run, frames):
+    raise RuntimeError("planted ingest failure")
+
+b.stage_eiger = stub("eiger16m_spotfind_fps")
+b.stage_ingest = boom
+b.stage_jungfrau = stub("jungfrau1m_extended_spotfind_fps")
+bench_integrator.run_stage = stub("kabsch_integrate_refl_per_s",
+                                  "kabsch_integrate_effective_slices_per_s")
+bench_ssx.run_stage = stub("ssx_index_images_per_s")
+sys.exit(b.main())
+"""
+
+
 def test_bench_stage_that_raises_exits_1_and_the_rest_still_print():
-    code = (
-        "import sys\n"
-        "import ffs_tpu_torch.bench as b\n"
-        "def boom(run, frames):\n"
-        "    raise RuntimeError('planted ingest failure')\n"
-        "b.stage_ingest = boom\n"
-        "sys.exit(b.main())\n"
-    )
+    code = STUB_STAGES
     r, lines = _run([sys.executable, "-c", code], _bench_env(**SMOKE_ENV))
     assert r.returncode == 1
     assert "planted ingest failure" in r.stderr and "ingest stage FAILED" in r.stderr
     names = [x["metric"] for x in lines if "metric" in x]
     assert names == [m for m in (*METRICS, METRICS[0]) if m != "eiger16m_ingest_spotfind_fps"]
     assert lines[-1]["metric"] == METRICS[0]
+    stages = [x["stage"] for x in lines if "launches" in x]
+    assert stages == [m for m in METRICS if m != "eiger16m_ingest_spotfind_fps"]
 
 
 # --- the anchor comparator ----------------------------------------------------------
