@@ -192,7 +192,31 @@ import).  Phases, each of which fails the run:
    be above 0;
 22. the indexer's robustness — ``ffs_tpu_torch.tools.indexer_robustness``'s
    ``clean_ortho`` and ``second_lattice`` at seed 7 must index to its 1%
-   gate (the full 8-case x 5-seed campaign is the tool's own run).
+   gate (the full 8-case x 5-seed campaign is the tool's own run);
+23. the last ``ffs_tpu`` functions, and the Jungfrau 1M collection — (a)
+   ``bshuf_lz4_decompress_device`` bit for bit against the host codec and
+   its input at S = 1, 2 and 4 over tests/test_bitshuffle_device.py's
+   element counts (a group, a block, several, a partial block, raw tails)
+   and on whole Eiger 16M u16 and u32 chunks, the row-5 kernel launched
+   once a chunk; ``decode_blocks`` against the plain untranspose; the
+   kernel's ms on the Eiger 16M chunk beside its byte bound and the plain
+   version's; (b) ``label_components_2d`` on sample images 2 and 5's strong
+   masks and a 512 x 512 spiral, every root equal to the sparse path's,
+   with its rounds and ms; (c) the row-1 kernel's strong mask against the
+   division-form oracle (``ops/reference_division``) and the boxed f64
+   oracle on tests/test_oracle_cross_form.py's fuzz, spot frames up to the
+   u16 range and four Jungfrau frames: no pixel differs outside the f32
+   envelope, and the test's two exact ties reject in all three forms; (d)
+   224 seeded Jungfrau 1M frames (bench.py's 1066 x 1030 generator, whose
+   pixel count leaves a raw tail of 4) as a stream dump through the
+   ``spotfinder`` CLI with ``--algorithm dispersion_extended`` and
+   ``--threads`` the host's cores: f32 at B = 112 with host and with device
+   decode, and the f64 default per frame on the first 16; each exits 0 on
+   the card without a notice, as ffs_tpu's CLI does there, the two f32 runs
+   give the same pipe lines, frames 0 and 1 equal the processor with the
+   plain extended threshold on the card, row 2 launches once a batch a run
+   and row 5 never (no planes from a frame with a raw tail); each run's CLI
+   fps.  Row 5's launches in the kernels line include (a)'s.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, on
@@ -3143,6 +3167,399 @@ def phase_robustness(card: str) -> None:
             f"on {card}")
 
 
+# phase 23: the last ffs_tpu functions on the card (the chunk decode on the
+# row-5 kernel, the dense labelling, the division-form oracle) and the
+# Jungfrau 1M collection through the CLI
+# tests/test_bitshuffle_device.py's element counts, and a one-element tail
+CHUNK_ELEMS = (8, 4096, 4096 * 3, 10000, 10007, 1025, 63)
+SPIRAL_SIDE = 512
+XFORM_TOL = 2e-6  # tests/test_oracle_cross_form.py's envelope, on the f64 relative margin
+XFORM_JUNGFRAU_FRAMES = 4
+JUNGFRAU_FRAMES, JUNGFRAU_BATCH = 224, 112  # distinct frames made; the CLI's batch
+# each f32 CLI run is timed over the first two batches and over ten (the dump
+# repeats the 224 frames), the f64 per-frame runs over 16 and 112 frames: the
+# warm rate is the frames between the two counts over the time between them,
+# the first batches' start-up left out; each pair is run twice a mode
+JUNGFRAU_F32_COUNTS, JUNGFRAU_F64_COUNTS, JUNGFRAU_REPS = (224, 1120), (16, 112), 2
+JUNGFRAU_SEED = 23
+JUNGFRAU_PLAIN_FRAMES = 2  # frames held to the processor with the plain extended threshold
+
+
+def spiral(n: int) -> np.ndarray:
+    """One 4-connected path winding inward over an n x n square (the same
+    path as tests/test_torch_dense_label.py's): labels that need ~2n rounds."""
+    s = np.zeros((n, n), bool)
+    top, left, bottom, right = 0, 0, n - 1, n - 1
+    while top <= bottom and left <= right:
+        s[top, left : right + 1] = True
+        s[top : bottom + 1, right] = True
+        if bottom - top >= 2:
+            s[bottom, left : right + 1] = True
+        if bottom - top >= 4 and right - left >= 4:
+            s[top + 2 : bottom + 1, left] = True
+            s[top + 2, left : left + 3] = True
+        top, left, bottom, right = top + 2, left + 2, bottom - 2, right - 2
+    return s
+
+
+def strong_from_pcw(pcw, width: int):
+    """Dense bool (H, W) strong mask of (H, 2*nwl) combined [pc | w32] rows,
+    on their device."""
+    import torch
+
+    from ffs_tpu_torch.ops.compact import _strong_linear_indices
+
+    strong = torch.zeros(pcw.shape[0] * width, dtype=torch.bool, device=pcw.device)
+    strong[_strong_linear_indices(pcw, width)] = True
+    return strong.reshape(pcw.shape[0], width)
+
+
+def chunk_cases(rng) -> list[tuple[str, np.ndarray]]:
+    """(tag, elements): tests/test_bitshuffle_device.py's cases at S = 1, 2
+    and 4 (uniform over the type, all-ones, MSB-only and zero planted
+    first), then whole Eiger 16M frames, u16 (sample image 2) and u32."""
+    cases = []
+    for s, dt in ((1, np.uint8), (2, np.uint16), (4, np.uint32)):
+        top = np.iinfo(dt).max
+        for n in CHUNK_ELEMS:
+            data = rng.integers(0, int(top) + 1, size=n, dtype=dt)
+            data[:3] = (top, dt(1) << (8 * s - 1), 0)
+            cases.append((f"S={s} n={n}", data))
+    (_, _, _), (_, u32, _) = seeded_frames()
+    cases.append(("Eiger 16M u16", sample_frames()[2].reshape(-1)))
+    cases.append(("Eiger 16M u32", u32.reshape(-1)))
+    return cases
+
+
+def phase_chunk_decode(dev, card: str) -> int:
+    """(a) ``bshuf_lz4_decompress_device`` bit for bit against the host codec
+    and the elements that went in, then ``decode_blocks`` against the plain
+    untranspose on the card, and the kernel's time on the Eiger 16M u16
+    chunk; returns the row-5 launches of the entry calls."""
+    import torch
+
+    from ffs_tpu_torch.io import compression
+    from ffs_tpu_torch.ops import bitshuffle_device as bd
+
+    cases = []
+    for tag, data in chunk_cases(np.random.default_rng(JUNGFRAU_SEED)):
+        s = data.dtype.itemsize
+        cases.append((tag, data, s, bytes(compression.bshuf_lz4_compress(data, s))))
+    bd.frames_from_planes.launches = 0
+    decoded = [bd.bshuf_lz4_decompress_device(chunk, data.size, s, device=dev)
+               for _, data, s, chunk in cases]
+    torch.cuda.synchronize()
+    launches = bd.frames_from_planes.launches
+    if launches != len(cases):  # every case has a whole 8-element group
+        fail(f"chunk decode: {launches} row-5 launches for {len(cases)} chunks")
+    for (tag, data, s, chunk), got in zip(cases, decoded):
+        host = compression.bshuf_lz4_decompress(chunk, data.size, s)
+        planes, tail, block_elem, n_shuf = compression.bshuf_lz4_planes(chunk, data.size, s)
+        p = torch.from_numpy(planes).to(dev)
+        blocks = bd.decode_blocks(p, s).view(torch.uint8)
+        plain = bd.untranspose_planes_plain(p, s).view(torch.uint8)
+        same = torch.equal(blocks, plain)
+        say(f"chunk {tag:14s} {len(chunk):9d} B, {planes.shape[0]:5d} blocks of {block_elem} "
+            f"elements, tail {len(tail)} B: device decode bit-equal to the codec "
+            f"{np.array_equal(got, host)}, to the input {np.array_equal(got, data.view(np.uint8))}; "
+            f"decode_blocks bit-equal to the plain untranspose {same}")
+        if not (np.array_equal(got, host) and np.array_equal(got, data.view(np.uint8)) and same):
+            fail(f"chunk decode {tag} differs")
+
+    _, data, s, chunk = cases[-2]  # the Eiger 16M u16 chunk
+    planes = torch.from_numpy(compression.bshuf_lz4_planes(chunk, data.size, s)[0]).to(dev)
+    nbytes = 2 * planes.numel()  # the planes read once, the elements written once
+    bound = bound_ms(nbytes)
+    p1 = cuda_ms(lambda: bd.untranspose_planes_plain(planes, s), 3)
+    k1 = cuda_ms(lambda: bd.decode_blocks(planes, s), 50)
+    k2 = cuda_ms(lambda: bd.decode_blocks(planes, s), 50)
+    p2 = cuda_ms(lambda: bd.untranspose_planes_plain(planes, s), 3)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        bd.bshuf_lz4_decompress_device(chunk, data.size, s, device=dev)
+    t_dev = (time.perf_counter() - t0) / 5
+    t0 = time.perf_counter()
+    for _ in range(5):
+        compression.bshuf_lz4_decompress(chunk, data.size, s)
+    t_host = (time.perf_counter() - t0) / 5
+    say(f"time chunk decode Eiger 16M u16 ({planes.shape[0]} blocks): kernel {k1:.4f} / {k2:.4f} "
+        f"ms, plain {p1:.4f} / {p2:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} B); "
+        f"the whole call {t_dev * 1e3:.2f} ms (LZ4, upload, kernel, download) against the host "
+        f"codec's {t_host * 1e3:.2f} ms, host clock; on {card}")
+    return launches
+
+
+def phase_dense_label(dev, card: str) -> None:
+    """(b) ``label_components_2d`` on the card: sample images 2 and 5's
+    strong masks (the row-1 kernel's) at Eiger 16M and a spiral, each
+    pixel's root equal to the sparse path's (``compact_strong_pixels`` then
+    ``label_compact_pixels``)."""
+    import torch
+
+    from ffs_tpu_torch.io import sample_data
+    from ffs_tpu_torch.ops import connected_components as cc
+    from ffs_tpu_torch.ops import dispersion_packed as dp
+
+    msk = torch.from_numpy(sample_data.generate_mask()).to(dev)
+    masks = []
+    for i in (2, 5):
+        img = torch.from_numpy(sample_frames()[i]).to(dev)
+        masks.append((f"sample image {i}", strong_from_pcw(dp.dispersion_packed_raw(
+            img, msk, 65535.0), SIDE[1]), img))
+    sp = torch.from_numpy(spiral(SPIRAL_SIDE)).to(dev)
+    masks.append((f"spiral {SPIRAL_SIDE}", sp, torch.ones(sp.shape, dtype=torch.uint16, device=dev)))
+    for tag, strong, img in masks:
+        h, w = strong.shape
+        cc.label_components_2d(strong)  # the first call of a shape sets up; time the second
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = cc.label_components_2d(strong)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rounds = cc.label_components_2d.rounds
+        n = int(strong.sum())
+        pixels = cc.compact_strong_pixels(strong, img, max_pixels=n)
+        root = cc.label_compact_pixels(pixels, width=w).to(torch.int64)
+        lin = pixels.linear_index.to(torch.int64)
+        same = (torch.equal(dense.reshape(-1)[lin], pixels.linear_index[root])
+                and bool((dense[~strong] == cc.BIG).all()))
+        n_comp = int((dense.reshape(-1)[lin] == lin).sum())
+        say(f"dense label {tag:16s} {h} x {w}: {n} strong px, {n_comp} components, {rounds} "
+            f"rounds, {ms:.1f} ms (host clock, a host read a round); every root equal to the "
+            f"sparse path's {same}; on {card}")
+        if not same:
+            fail(f"dense labels of {tag} differ from the sparse path's")
+        if tag.startswith("spiral") and n_comp != 1:
+            fail(f"the spiral labels as {n_comp} components")
+
+
+def xform_margins(image: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """The smaller |f64 relative margin| of the two dispersion predicates
+    (tests/test_oracle_cross_form.py's _margins)."""
+    from ffs_tpu_torch.constants import DEFAULT_NSIG_B, DEFAULT_NSIG_S
+    from ffs_tpu_torch.ops import reference
+
+    m, x, y = reference.local_statistics(image, mask, 3)
+    mf, xf, yf = (v.astype(np.float64) for v in (m, x, y))
+    tiny = np.finfo(np.float64).tiny
+    with np.errstate(invalid="ignore"):  # empty windows (m = 0) give NaN: no margin
+        a = mf * yf - xf * xf - xf * (mf - 1)
+        c = xf * DEFAULT_NSIG_B * np.sqrt(2 * (mf - 1))
+        b = mf * image.astype(np.float64) - xf
+        d = DEFAULT_NSIG_S * np.sqrt(xf * mf)
+        mbg = (a - c) / np.maximum(np.maximum(np.abs(a), np.abs(c)), tiny)
+        msig = (b - d) / np.maximum(np.maximum(np.abs(b), np.abs(d)), tiny)
+    return np.minimum(np.abs(mbg), np.abs(msig))
+
+
+def xform_frames(jf_frames: np.ndarray, jf_mask: np.ndarray) -> list:
+    """(tag, image, mask, tie pixel or None): tests/test_oracle_cross_form.py's
+    fuzz (Poisson frames up to lambda 3000 with 2% of the mask cleared, and
+    its frames built to straddle the signal threshold), spots over
+    backgrounds up to the u16 range, Jungfrau 1M frames, and the test's two
+    exact integer ties."""
+    from ffs_tpu_torch.constants import DEFAULT_NSIG_S
+
+    out = []
+    for lam in (2.0, 30.0, 400.0, 3000.0):
+        rng = np.random.default_rng(int(lam))
+        for trial in range(4):
+            image = rng.poisson(lam, size=(96, 128)).astype(np.uint16)
+            mask = np.ones_like(image, dtype=np.uint8)
+            mask[rng.random(image.shape) < 0.02] = 0
+            out.append((f"poisson {lam:g} #{trial}", image, mask, None))
+    rng = np.random.default_rng(99)
+    for trial in range(6):
+        lam = float(rng.uniform(5, 50))
+        image = rng.poisson(lam, size=(64, 96)).astype(np.float64)
+        sel = rng.random(image.shape) < 0.3
+        image[sel] = np.round(lam + DEFAULT_NSIG_S * np.sqrt(lam)) + rng.integers(
+            -1, 2, size=int(sel.sum()))
+        out.append((f"straddle #{trial}", image.astype(np.uint16),
+                    np.ones(image.shape, np.uint8), None))
+    for scale in (1, 10, 100, 1000, 5000):
+        rng = np.random.default_rng(scale)
+        image = rng.poisson(3.0 * scale, size=(256, 256)).astype(np.int64)
+        for y, x in rng.integers(4, 252, size=(80, 2)):
+            image[y - 1 : y + 2, x - 1 : x + 2] += rng.poisson(9.0 * scale + 5, size=(3, 3))
+        out.append((f"spots x{scale}", np.minimum(image, 65535).astype(np.uint16),
+                    np.ones(image.shape, np.uint8), None))
+    out += [(f"Jungfrau 1M #{k}", f, jf_mask, None) for k, f in enumerate(jf_frames)]
+    # the variance tie a == c == 3168 at (4, 4): 33 valid pixels of the window
+    image = np.zeros((64, 64), np.uint16)
+    mask = np.zeros((64, 64), np.uint8)
+    vals = [14] + [2] * 22 + [1] * 8 + [0] * 2
+    for (r, c), v in zip([(r, c) for r in range(1, 8) for c in range(1, 8)], vals):
+        image[r, c], mask[r, c] = v, 1
+    out.append(("variance tie", image, mask, (4, 4)))
+    # the signal tie: mean 4 over 49 pixels, threshold 10, centre pixel 10
+    image = np.full((64, 64), 4, np.uint16)
+    image[6, 6], image[3, 3], image[3, 4] = 10, 0, 2
+    out.append(("signal tie", image, np.ones((64, 64), np.uint8), (6, 6)))
+    return out
+
+
+def phase_cross_form(dev, card: str, jf_frames: np.ndarray, jf_mask: np.ndarray) -> None:
+    """(c) The row-1 kernel's float32 strong mask against the division-form
+    oracle (``ops/reference_division``, the upstream CUDA kernel's f32
+    arithmetic) and the boxed f64 oracle (``ops/reference``): a pixel may
+    differ only inside the f32 envelope; the exact ties reject in all three."""
+    import torch
+
+    from ffs_tpu_torch.ops import dispersion_packed as dp
+    from ffs_tpu_torch.ops import reference, reference_division
+
+    tm = 65535.0
+    totals = {"division f32": [0, 0], "boxed f64": [0, 0]}
+    n_px = n_strong = 0
+    for tag, image, mask, tie in xform_frames(jf_frames, jf_mask):
+        pcw = dp.dispersion_packed_raw(torch.from_numpy(image).to(dev),
+                                       torch.from_numpy(mask).to(dev), tm)
+        got = strong_from_pcw(pcw, image.shape[1]).cpu().numpy()
+        near = xform_margins(image, mask) < XFORM_TOL
+        n_px += image.size
+        n_strong += int(got.sum())
+        with np.errstate(invalid="ignore"):  # the oracles' NaNs of empty windows test False
+            forms = (("division f32", reference_division.dispersion_division_f32(image, mask, tm)),
+                     ("boxed f64", reference.dispersion(image, mask, tm)))
+        for form, want in forms:
+            diff = got != want
+            outside = int((diff & ~near).sum())
+            totals[form][0] += int(diff.sum())
+            totals[form][1] += outside
+            if outside:
+                fail(f"cross-form {tag}: the card's threshold differs from the {form} form on "
+                     f"{outside} pixels outside the f32 envelope")
+            if tie is not None and (got[tie] or want[tie]):
+                fail(f"cross-form {tag}: the exact tie at {tie} does not reject in every form")
+    say(f"cross-form: the row-1 kernel (f32) on {n_px} px of fuzz, spot, Jungfrau and tie frames "
+        f"({n_strong} strong): "
+        + "; ".join(f"{form}: {d} disagreeing px, {o} outside the {XFORM_TOL:g} envelope"
+                    for form, (d, o) in totals.items())
+        + f"; both ties reject in all three forms; on {card}")
+
+
+@contextlib.contextmanager
+def plain_extended():
+    """Route the processor's extended threshold to its plain PyTorch version
+    (on any device) for the duration, for a reference run on the card."""
+    from ffs_tpu_torch import spotfind
+    from ffs_tpu_torch.ops import dispersion_extended_packed as dxp
+
+    saved = spotfind.dispersion_extended_packed_raw
+    spotfind.dispersion_extended_packed_raw = (
+        lambda image, mask, tm, mbox=None, **kw: dxp.dispersion_extended_packed_plain(
+            image, mask, tm, **kw))
+    try:
+        yield
+    finally:
+        spotfind.dispersion_extended_packed_raw = saved
+
+
+def phase_jungfrau_cli(dev, card: str, frames: np.ndarray, mask: np.ndarray) -> dict:
+    """(d) The Jungfrau 1M collection as a stream dump through the
+    ``spotfinder`` CLI (``--algorithm dispersion_extended``, ``--threads``
+    the host's cores): f32 at B = 112 with host and with device decode, and
+    the f64 default per frame.  Each mode runs ``JUNGFRAU_REPS`` times at
+    each count of frames; prints the CLI's fps a run and the warm rate
+    between the two counts.  Returns the launches of rows 2 and 5."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ffs_tpu_torch.io import compression
+    from ffs_tpu_torch.io.shm import SHMRead
+    from ffs_tpu_torch.ops.bitshuffle_device import frames_from_planes
+    from ffs_tpu_torch.ops.dispersion_extended_packed import dispersion_extended_packed_raw
+    from ffs_tpu_torch.spotfind import SpotfindConfig, SpotfindProcessor
+
+    threads = str(os.cpu_count() or 1)
+    h, w = mask.shape
+    n_dump = max(JUNGFRAU_F32_COUNTS)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        chunks = list(pool.map(lambda f: bytes(compression.bshuf_lz4_compress(f, 2)), frames))
+    base = ["--algorithm", "dispersion_extended", "--threads", threads]
+    f32 = ["--precision", "f32", "--batch", str(JUNGFRAU_BATCH), "--decode-backend"]
+    modes = {"f32 host decode": (f32 + ["host"], JUNGFRAU_F32_COUNTS),
+             "f32 device decode": (f32 + ["device"], JUNGFRAU_F32_COUNTS),
+             "f64 per frame": ([], JUNGFRAU_F64_COUNTS)}
+    lines_of, warm = {}, {mode: [] for mode in modes}
+    frames_from_planes.launches = 0
+    dispersion_extended_packed_raw.launches = 0
+    with tempfile.TemporaryDirectory(prefix="ffs_smoke_jf_") as tmp:
+        dump = write_shm_dir(pathlib.Path(tmp), [chunks[i % len(chunks)] for i in range(n_dump)],
+                             mask)
+        say(f"jungfrau: {len(frames)} frames of {h} x {w} u16 ({h * w} px, {h * w % 8} past a "
+            f"whole 8-element group), {sum(map(len, chunks)) / 1e6:.1f} MB of bitshuffle-LZ4, "
+            f"repeated to a dump of {n_dump}")
+        for rep in range(JUNGFRAU_REPS):
+            for mode, (extra, counts) in modes.items():
+                secs = []
+                for n in counts:
+                    rc, log, lines, seconds = run_cli(
+                        [str(dump), *base, *extra, "--images", str(n)])
+                    if rc != 0 or "Device: cuda" not in log or "unavailable" in log:
+                        print(log[-4000:])
+                        fail(f"jungfrau CLI {mode}: exit {rc}, not as ffs_tpu's CLI on that "
+                             "input (0, on the card, no notice)")
+                    by_frame = {ln["file-number"]: ln for ln in lines}
+                    if sorted(by_frame) != list(range(n)):
+                        fail(f"jungfrau CLI {mode}: pipe lines for {len(by_frame)} frames, not {n}")
+                    m = re.search(r"(\d+) images in ([\d.]+) s .*\(([\d.]+) fps\)", log)
+                    fps = float(m.group(3))
+                    secs.append(n / fps)
+                    px = sum(ln["num_strong_pixels"] for ln in lines)
+                    spots = sum(ln["n_spots_total"] for ln in lines)
+                    say(f"jungfrau CLI {mode:17s} {n:5d} frames: {px} strong px, {spots} spots; "
+                        f"CLI {fps} fps ({m.group(2)} s), run() {seconds:.3f} s; on {card}")
+                    got = [(ln["num_strong_pixels"], ln["n_spots_total"])
+                           for _, ln in sorted(by_frame.items())]
+                    prior = lines_of.setdefault(mode, got)
+                    if got[: len(prior)] != prior[: len(got)]:
+                        fail(f"jungfrau CLI {mode}: pipe lines differ between runs")
+                    if len(got) > len(prior):
+                        lines_of[mode] = got
+                (n0, n1), (t0, t1) = counts, secs
+                warm[mode].append((n1 - n0) / (t1 - t0))
+                say(f"jungfrau CLI {mode:17s} warm: {warm[mode][-1]} fps over frames "
+                    f"{n0}-{n1} (run {rep + 1}); on {card}")
+        torch.cuda.synchronize()
+        launches = {"bitshuffle_frames": frames_from_planes.launches,
+                    "dispersion_extended_packed": dispersion_extended_packed_raw.launches}
+        reader = SHMRead(str(dump))
+        trusted = reader.get_trusted_range()[1]
+    for mode, rates in warm.items():
+        say(f"jungfrau CLI {mode:17s}: warm {min(rates)}-{max(rates)} fps over "
+            f"{len(rates)} runs; on {card}")
+    f32_lines = lines_of["f32 host decode"]
+    if lines_of["f32 device decode"] != f32_lines:
+        fail("jungfrau CLI: the f32 pipe lines differ between host and device decode")
+    if any(f32_lines[i] != f32_lines[i % len(frames)] for i in range(n_dump)):
+        fail("jungfrau CLI: a repeated frame's pipe line differs from its first")
+    # a threshold launch a batch in each f32 run; no planes from a frame with
+    # a raw tail, so device decode decodes on the host, as ffs_tpu's CLI does,
+    # and the two f32 modes time one path
+    n_batches = sum(-(-n // JUNGFRAU_BATCH) for n in JUNGFRAU_F32_COUNTS)
+    want = {"bitshuffle_frames": 0, "dispersion_extended_packed": 2 * JUNGFRAU_REPS * n_batches}
+    say(f"jungfrau CLI launches of rows 2 and 5: {launches}")
+    if launches != want:
+        fail(f"jungfrau CLI launches {launches}, expected {want}")
+
+    config = SpotfindConfig(algorithm="dispersion_extended", precision="f32", use_kernel=True)
+    proc = SpotfindProcessor(w, h, mask, trusted, config, device=dev)
+    nums = list(range(JUNGFRAU_PLAIN_FRAMES))
+    with plain_extended():
+        ref = proc.collect_batch(nums, proc.dispatch_batch(frames[nums]))
+    for r in ref:
+        got = f32_lines[r.image_number]
+        if got != (r.n_strong_pixels, r.n_spots):
+            fail(f"jungfrau frame {r.image_number}: CLI {got} against the plain extended "
+                 f"threshold's ({r.n_strong_pixels}, {r.n_spots})")
+    say(f"jungfrau: frames {nums} of the f32 runs equal the processor with the plain extended "
+        "threshold on the card")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU.")
     ap.add_argument("--multi-only", action="store_true",
@@ -3288,6 +3705,18 @@ def main() -> int:
     phase_robustness(card)
     say(f"phase 22: {time.perf_counter() - t22:.1f} s on {card}")
 
+    # phase 23: the chunk decode on the row-5 kernel, the dense labelling and
+    # the division-form oracle on the card; the Jungfrau 1M collection
+    # through the CLI
+    t23 = time.perf_counter()
+    launches_23 = {"bitshuffle_frames": phase_chunk_decode(dev, card)}
+    phase_dense_label(dev, card)
+    jf_frames, jf_mask = jungfrau_batch(JUNGFRAU_FRAMES, JUNGFRAU_SEED)
+    phase_cross_form(dev, card, jf_frames[:XFORM_JUNGFRAU_FRAMES], jf_mask)
+    for name, n in phase_jungfrau_cli(dev, card, jf_frames, jf_mask).items():
+        launches_23[name] = launches_23.get(name, 0) + n
+    say(f"phase 23: launches {launches_23}; {time.perf_counter() - t23:.1f} s on {card}")
+
     sources = {
         "dispersion_packed": ("ffs_tpu_torch/csrc/dispersion_packed.cu",
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
@@ -3336,10 +3765,11 @@ def main() -> int:
             "bench_launches": launches_bench.get(name),
             "tools_launches": launches_tools.get(name),
             "chain_launches": launches_chain.get(name),
+            "phase23_launches": launches_23.get(name),
         }
         for name, (src, replaces) in sources.items()
     ]}
-    say(f"smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s on {card}")
+    say(f"smoke: phases 1-23 in {time.perf_counter() - t_start:.1f} s on {card}")
     say(f"card: {card}")
     say(json.dumps(summary))
     say(json.dumps({

@@ -17,9 +17,15 @@
 // array whose byte [s, kk, g] holds bit kk of byte s of elements 8g..8g+7
 // (bit t of that byte for element 8g+t).  The final partial block arrives
 // re-spread into that full-block layout, zero padded; elements at or past
-// H*W are not written.  out (B, H*W) of S-byte elements, S = 2 (u16) or 4
-// (u32).  The output is a permutation of the input's bits: no arithmetic, no
-// atomics, so it equals the plain version bit for bit.
+// H*W are not written.  out (B, H*W) of S-byte elements, S = 1 (u8), 2
+// (u16) or 4 (u32).  The output is a permutation of the input's bits: no
+// arithmetic, no atomics, so it equals the plain version bit for bit.
+//
+// The chunk decode (ffs_tpu/ops/bitshuffle_device.py decode_blocks :266 and
+// bshuf_lz4_decompress_device :297) runs the same entry with B = 1 and the
+// chunk's blocks as one flat frame of n_blocks * block_elem elements, at any
+// of the three element sizes; its raw tail of n_elem % 8 elements never
+// reaches the card.
 //
 // What bounds it on the H100: bytes.  The least time is (the planes read
 // once + the frames written once) / 3.35 TB/s: for an Eiger 16M u16 frame
@@ -29,8 +35,8 @@
 // thread loads its 8*S plane bytes (across a warp, consecutive groups read
 // consecutive bytes of each plane row), transposes the 8x8 bit matrices in
 // registers with the three delta-swap steps of _transpose8, assembles the 8
-// elements with byte permutes and writes them as 16 B (u16) or 32 B (u32),
-// contiguous across the warp.  Byte loads keep it below the memory rate:
+// elements with byte permutes and writes them as 8 B (u8), 16 B (u16) or
+// 32 B (u32), contiguous across the warp.  Byte loads keep it below the memory rate:
 // 16-byte loads and more groups per thread are later work.
 
 #include <cstdint>
@@ -85,7 +91,10 @@ __global__ void __launch_bounds__(kThreads)
 
   // little-endian elements: element t's byte s is byte t of lo[s]/hi[s]
   uint8_t* dst = out + (b * n_px + 8 * g) * S;
-  if constexpr (S == 2) {
+  if constexpr (S == 1) {
+    // the 8 bytes of elements 0-7 are the transposed matrix itself
+    *reinterpret_cast<uint2*>(dst) = make_uint2(lo[0], hi[0]);
+  } else if constexpr (S == 2) {
     // word j holds elements 2j and 2j+1: [lo0.b, lo1.b, lo0.b', lo1.b']
     const uint4 v = make_uint4(__byte_perm(lo[0], lo[1], 0x5140), __byte_perm(lo[0], lo[1], 0x7362),
                                __byte_perm(hi[0], hi[1], 0x5140), __byte_perm(hi[0], hi[1], 0x7362));
@@ -112,13 +121,13 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // planes (B, n_blocks, block_elem * elem_size) uint8 on the device; out
-// (B, n_px) elements of elem_size bytes (2 or 4), 16-byte aligned.  The
+// (B, n_px) elements of elem_size bytes (1, 2 or 4), 16-byte aligned.  The
 // Python wrapper checks that the planes hold n_px elements and that
 // block_elem and n_px are multiples of 8.  Launches on `stream`; returns the
 // launch error (0 on success).
 extern "C" int ffs_bitshuffle_frames(const void* planes, int b, int n_blocks, int block_elem,
                                      int elem_size, int n_px, void* out, void* stream) {
-  if ((elem_size != 2 && elem_size != 4) || block_elem <= 0 || block_elem % 8 || n_px % 8 ||
+  if ((elem_size != 1 && elem_size != 2 && elem_size != 4) || block_elem <= 0 || block_elem % 8 || n_px % 8 ||
       static_cast<long long>(n_blocks) * block_elem < n_px) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -130,7 +139,9 @@ extern "C" int ffs_bitshuffle_frames(const void* planes, int b, int n_blocks, in
   auto* src = static_cast<const uint8_t*>(planes);
   auto* dst = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (elem_size == 2) {
+  if (elem_size == 1) {
+    bitshuffle_frames_kernel<1><<<grid, kThreads, 0, s>>>(src, frame_bytes, m, n_px, dst);
+  } else if (elem_size == 2) {
     bitshuffle_frames_kernel<2><<<grid, kThreads, 0, s>>>(src, frame_bytes, m, n_px, dst);
   } else {
     bitshuffle_frames_kernel<4><<<grid, kThreads, 0, s>>>(src, frame_bytes, m, n_px, dst);

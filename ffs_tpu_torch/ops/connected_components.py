@@ -304,3 +304,47 @@ def filter_spots(
     n_size = (table.valid & ~size_ok).sum(dtype=torch.int32)
     n_sep = (table.valid & size_ok & ~sep_ok).sum(dtype=torch.int32)
     return table.valid & size_ok & sep_ok, n_size, n_sep
+
+
+# ---------------------------------------------------------------------------
+# Dense labelling (reference and testing path; the production pipeline uses
+# the sparse compaction + label_compact_pixels route above)
+# ---------------------------------------------------------------------------
+
+
+def _neighbor_min(lbl: torch.Tensor) -> torch.Tensor:
+    """Min over the 4-neighbourhood (and self), BIG-padded at the borders."""
+    out = lbl.clone()
+    out[:-1] = torch.minimum(out[:-1], lbl[1:])
+    out[1:] = torch.minimum(out[1:], lbl[:-1])
+    out[:, :-1] = torch.minimum(out[:, :-1], lbl[:, 1:])
+    out[:, 1:] = torch.minimum(out[:, 1:], lbl[:, :-1])
+    return out
+
+
+def label_components_2d(strong: torch.Tensor) -> torch.Tensor:
+    """Dense 4-connected labels for a bool (H, W) mask, on its device.
+
+    Returns int32 (H, W): for strong pixels, the linear index of the
+    component's root (its minimum linear index); BIG elsewhere.  Each round
+    takes the 4-neighbour minimum and one pointer jump, until no label
+    changes (one host read a round).  ``label_components_2d.rounds`` holds
+    the last call's round count.
+    """
+    h, w = strong.shape
+    big = torch.tensor(BIG, dtype=torch.int32, device=strong.device)
+    lin = torch.arange(h * w, dtype=torch.int32, device=strong.device).reshape(h, w)
+    lbl = torch.where(strong, lin, big)
+    rounds = 0
+    while True:
+        rounds += 1
+        prop = torch.where(strong, _neighbor_min(lbl), big)
+        jumped = prop.reshape(-1)[prop.clamp(0, h * w - 1).to(torch.int64)]
+        new = torch.where(strong, torch.minimum(prop, jumped), big)
+        if torch.equal(new, lbl):
+            label_components_2d.rounds = rounds
+            return new
+        lbl = new
+
+
+label_components_2d.rounds = 0

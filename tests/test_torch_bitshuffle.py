@@ -58,13 +58,21 @@ def _chunk(frame, block_elem):
 
 @pytest.mark.parametrize("elem_size", [1, 2, 4])
 def test_untranspose_plain_matches_jax(elem_size):
+    """Bit-equal to every JAX formulation of the bit map: the butterfly, the
+    8-pass reference, the SWAR form and the u32-word wide form."""
     rng = np.random.default_rng(elem_size)
     planes = rng.integers(0, 256, size=(5, 8 * elem_size * 24), dtype=np.uint8)
     got = tbd.untranspose_planes_plain(torch.from_numpy(planes), elem_size)
-    for jax_fn in (jbd.untranspose_planes, jbd.untranspose_planes_ref):
+    assert got.dtype == tbd._UNSIGNED[elem_size]
+    for jax_fn in (jbd.untranspose_planes, jbd.untranspose_planes_ref, jbd.untranspose_planes_swar):
         want = np.asarray(jax_fn(jnp.asarray(planes), elem_size))
-        assert got.dtype == tbd._UNSIGNED[elem_size]
         np.testing.assert_array_equal(got.numpy(), want)
+    # the u32-word form: planes viewed as little-endian words, one u32 an element
+    wide = np.asarray(jbd.untranspose_planes_to_wide(jnp.asarray(planes.view(np.uint32)), elem_size))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), wide)
+    # the kernel's wrapper takes the plain version for a CPU tensor
+    np.testing.assert_array_equal(tbd.untranspose_planes(torch.from_numpy(planes), elem_size).numpy(),
+                                  got.numpy())
     with pytest.raises(ValueError, match="8-element groups"):
         tbd.untranspose_planes_plain(torch.from_numpy(planes[:, :-1]), elem_size)
 

@@ -2,10 +2,13 @@
 JAX, nor the JAX package ffs_tpu, nor the repo's benchmark script."""
 
 import ast
+import importlib
 import pathlib
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ffs_tpu", "bench")
@@ -71,3 +74,17 @@ def test_host_library_is_the_ports_own_build():
     if lib is None:  # no host compiler: the NumPy fallbacks serve
         return
     assert pathlib.Path(lib._name).parent == native.BUILD_DIR
+
+
+@pytest.mark.parametrize("name", ["ffs_tpu_torch.ops.reference_division", "ffs_tpu_torch.io.modules",
+                                  "ffs_tpu_torch.ops.bitshuffle_device",
+                                  "ffs_tpu_torch.ops.connected_components"])
+def test_the_last_counterparts_bind_only_the_ports_own(name):
+    """The copies of ffs_tpu's NumPy-only modules, and the modules that hold
+    the chunk decode and the dense labelling, bind no function of ffs_tpu:
+    every function they hold or import comes from the port."""
+    mod = importlib.import_module(name)
+    origins = {getattr(v, "__module__", None) for v in vars(mod).values()
+               if callable(v) and not isinstance(v, type)}
+    assert not {o for o in origins if o and o.split(".")[0] in FORBIDDEN}, origins
+    assert name in origins  # it defines functions of its own

@@ -375,6 +375,48 @@ def test_bitshuffle_frames_decode_the_codec(cuda, dtype):
     np.testing.assert_array_equal(got.cpu().numpy(), frames)
 
 
+@pytest.mark.parametrize("block_elem", [8192, 1024, 200])
+@pytest.mark.parametrize("elem_size", [1, 2, 4])
+def test_untranspose_planes_match_plain(cuda, elem_size, block_elem):
+    """The decode kernel over a chunk's blocks (``untranspose_planes``, the
+    entry of ``decode_blocks``) against the plain untranspose, bit for bit,
+    at S = 1, 2 and 4: random plane bytes, 5 blocks, one launch."""
+    from ffs_tpu_torch.ops import bitshuffle_device as bd
+
+    rng = np.random.default_rng(block_elem + elem_size)
+    planes = torch.from_numpy(
+        rng.integers(0, 256, (5, block_elem * elem_size), dtype=np.uint8)).to(cuda)
+    want = bd.untranspose_planes_plain(planes, elem_size)
+    before = bd.frames_from_planes.launches
+    got = bd.untranspose_planes(planes, elem_size)
+    torch.cuda.synchronize()
+    assert bd.frames_from_planes.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    with pytest.raises(ValueError, match="8-element groups"):
+        bd.untranspose_planes(planes[:, :-1], elem_size)
+
+
+@pytest.mark.parametrize("n_elem", [8, 4096, 4096 * 3, 10000, 10007, 1025, 63, 5])
+@pytest.mark.parametrize("elem_size", [1, 2, 4])
+def test_chunk_decode_on_the_card_matches_host_codec(cuda, elem_size, n_elem):
+    """``bshuf_lz4_decompress_device`` on the card against the host codec,
+    bit for bit: tests/test_bitshuffle_device.py's cases (a group, a block,
+    several, a partial block, raw tails, a tail alone)."""
+    from ffs_tpu_torch.io import compression
+    from ffs_tpu_torch.ops import bitshuffle_device as bd
+
+    dt = {1: np.uint8, 2: np.uint16, 4: np.uint32}[elem_size]
+    data = np.random.default_rng(n_elem + elem_size).integers(
+        0, int(np.iinfo(dt).max) + 1, size=n_elem, dtype=dt)
+    chunk = compression.bshuf_lz4_compress(data, elem_size)
+    before = bd.frames_from_planes.launches
+    got = bd.bshuf_lz4_decompress_device(chunk, n_elem, elem_size, device=cuda)
+    assert bd.frames_from_planes.launches == before + (1 if n_elem >= 8 else 0)
+    np.testing.assert_array_equal(got, compression.bshuf_lz4_decompress(chunk, n_elem, elem_size))
+    np.testing.assert_array_equal(got.view(dt), data)
+
+
 @pytest.mark.parametrize("cc_backend", ["host", "device"])
 def test_batch_on_gpu_matches_cpu(cuda, cc_backend):
     """The batched path on the card (decode, dispersion kernels) against
