@@ -9,8 +9,10 @@ runs frames through the batched path and ``--decode-backend device`` ships
 the LZ4-decoded bitshuffle planes to the card, which decodes them there
 (both need the kernel path: ``--precision f32`` on a CUDA device);
 ``--jax-profile DIR`` writes a ``torch.profiler`` trace of the collection
-loop.  The reader, algorithm-name and validation helpers are copies of the
-JAX CLI's (they touch no framework).
+loop and the loop's spans (:mod:`..utils.tracing`); every run ends with
+one ``{"ffs_trace": ...}`` line of counters.  The reader, algorithm-name
+and validation helpers are copies of the JAX CLI's (they touch no
+framework).
 
 Test hook: ``FFS_TORCH_KERNEL_PATH=1`` turns the kernel path on for a CPU
 device, where the kernels' plain PyTorch versions run, so that the batched
@@ -223,25 +225,39 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         help="Write a torch.profiler trace (Chrome trace JSON, CPU and CUDA"
         " activity) of the collection loop into DIR; the flag keeps the JAX"
         " CLI's name.  Composable with --batch; unlike --profile it keeps the"
-        " dispatch-ahead pipeline intact.",
+        " dispatch-ahead pipeline intact.  It also records the loop's spans"
+        " (on the main thread, named in the trace: ffs.reader_wait,"
+        " ffs.submit, ffs.decode_wait, ffs.stack, ffs.upload, ffs.dispatch,"
+        " ffs.collect, ffs.push3d, ffs.emit, ffs.release; recorded only:"
+        " ffs.fetch on the reader threads, ffs.inflight, ffs.setup,"
+        " ffs.epilogue), writes them to DIR/spans.json on the trace's time"
+        " base, and sums them in one line at the end, {\"ffs_trace\": ...}."
+        "  That line is printed without the flag too, with the counters only:"
+        " frames_in, lines_out, batches, h2d_bytes (frames or planes passed"
+        " to the device), fallback_batch_overflow (frames past the batched"
+        " capacity, run per frame), fallback_host_decode (planes decoded on"
+        " the host in a mixed batch), and the kernels' launches.",
     )
     return p
 
 
 def run(argv=None, default_pixel_depth: int = 16) -> int:
+    t_entry = time.time_ns()
     from ..models.geometry import Scan, simple_panel
     from ..models.reflection_table import ReflectionTable
     from ..ops import cc3d
     from ..utils.cli import apply_verbosity, expand_common_args
 
     from .. import __version__
+    from ..bench import kernel_wrappers
     from ..spotfind import SpotfindConfig, SpotfindProcessor
-    from ..utils import torchinit
+    from ..utils import torchinit, tracing
 
     torchinit.setup()
     print(f"Spotfinder version: {__version__}")
     args = _build_parser(__version__).parse_args(expand_common_args(argv))
     apply_verbosity(args)
+    tracing.start(bool(args.jax_profile))
 
     # Cooperative SIGINT cancellation (reference: spotfinder.cc:43-54,603):
     # the first Ctrl-C stops image intake so the epilogue still runs; a
@@ -419,7 +435,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
     validate_failures = 0
 
     def _emit(image_num: int, result, image_host):
-        nonlocal completed, validate_failures
+        nonlocal completed
         timings = None
         if isinstance(result, tuple) and len(result) == 3 and result[0] == "profiled":
             _, res, timings = result
@@ -427,14 +443,21 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
             res = result[1]  # batched mode: already a FrameResult
         else:
             res = processor.collect(image_num, result, want_com=want_com)
-        n_strong = res.n_strong_pixels
-        n_boxes = res.n_spots
         if rotation:
             rotation_slices[image_num] = res.pixels
-            _stream_ready_frames()
+            with tracing.span("ffs.push3d", frame=image_num):
+                _stream_ready_frames()
         elif want_com:
             reflection_centers_2d[image_num] = res.centers_of_mass
+        with tracing.span("ffs.emit", frame=image_num):
+            _emit_lines(image_num, res, image_host, timings)
+        completed += 1
 
+    def _emit_lines(image_num: int, res, image_host, timings):
+        """The frame's pipe line, log lines and --validate/--writeout."""
+        nonlocal validate_failures
+        n_strong = res.n_strong_pixels
+        n_boxes = res.n_spots
         # per-image component log lines (reference: connected_components.cc
         # generate_boxes -> "Extracted"/"Removed", scraped by the tests)
         n_extracted = res.n_spots_prefilter
@@ -467,6 +490,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
                 payload["spot_centers"] = [float(v) for v in res.centers_of_mass.reshape(-1)]
             pipe.write(json.dumps(payload) + "\n")
             pipe.flush()
+            tracing.count("lines_out")
 
         if args.validate:
             ok_match, message = validate_strong_pixels(
@@ -492,7 +516,6 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
             # per-image stage breakdown (reference: spotfinder.cc:1054-1087)
             for stage_name, ms in timings.items():
                 print(f"    {stage_name:>12s}: {ms:7.1f} ms")
-        completed += 1
 
     # reader-thread pool: HDF5 chunk reads + bitshuffle-LZ4 decode overlap
     # across frames (the native codecs release the GIL); decoded frames
@@ -531,11 +554,12 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
     def _fetch(num):
         """Reader-thread payload: LZ4-only planes when device decode is on
         and the frame supports it, the decoded frame otherwise."""
-        if decode_device:
-            planes = reader.get_image_planes(num)
-            if planes is not None:
-                return ("planes", planes)
-        return ("frame", reader.get_image(num))
+        with tracing.span("ffs.fetch", frame=num, annotate=False):
+            if decode_device:
+                planes = reader.get_image_planes(num)
+                if planes is not None:
+                    return ("planes", planes)
+            return ("frame", reader.get_image(num))
 
     class _LazyFrames:
         """Host frames decoded on demand (the batched overflow fallback and
@@ -554,45 +578,57 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
     need_host_frames = bool(args.validate or args.writeout)
 
     def _emit_next():
-        item = inflight.popleft()
-        if item[0] == "batch":
-            _, nums, dev, imgs = item
-            ress = processor.collect_batch(nums, dev, images=imgs, want_com=want_com)
-            lazy = isinstance(imgs, _LazyFrames)
-            for b, (num, res) in enumerate(zip(nums, ress)):
-                img = None if (lazy and not need_host_frames) else imgs[b]
-                _emit(num, ("collected", res), img)
+        kind, key, result, host, queued = inflight.popleft()
+        nums = key if kind == "batch" else [key]
+        tracing.record("ffs.inflight", queued, nums[0], len(nums), tracing.QUEUE)
+        if kind == "batch":
+            ress = processor.collect_batch(nums, result, images=host, want_com=want_com)
+            lazy = isinstance(host, _LazyFrames)
+            # one span for the batch's lines (its 3D pushes are recorded within)
+            with tracing.span("ffs.emit", frame=nums[0], frames=len(nums)):
+                for b, (num, res) in enumerate(zip(nums, ress)):
+                    _emit(num, ("collected", res),
+                          None if (lazy and not need_host_frames) else host[b])
         else:
-            _emit(*item[1:])
+            _emit(key, result, host)
+        with tracing.span("ffs.release", frame=nums[0], frames=len(nums)):
+            del result, host  # the frames on the host and the device step's outputs
 
     def _flush_batch():
         if not batch_buf:
             return
         nums = [n for n, _ in batch_buf]
         payloads = [p for _, p in batch_buf]
+        tracing.count("batches")
+        tracing.at(nums[0], len(nums))
         if all(tag == "planes" for tag, _ in payloads):
-            pls = [a for _, a in payloads]
-            stack = np.stack(pls + [np.zeros_like(pls[0])] * (batch_n - len(pls)))
+            with tracing.span("ffs.stack"):
+                pls = [a for _, a in payloads]
+                stack = np.stack(pls + [np.zeros_like(pls[0])] * (batch_n - len(pls)))
             dev = processor.dispatch_batch_planes(stack, dtype=pixel_dtype)
             imgs = _LazyFrames(nums)
         else:
             # mixed batch (a frame fell back mid-stream): decode any planes
             # on the host and take the frame path
-            from ..ops.bitshuffle_device import planes_to_frame_host
+            with tracing.span("ffs.stack"):
+                from ..ops.bitshuffle_device import planes_to_frame_host
 
-            frames = [
-                a
-                if tag == "frame"
-                else planes_to_frame_host(a, height * width, bytes_per_pixel)
-                .view(pixel_dtype)
-                .reshape(height, width)
-                for tag, a in payloads
-            ]
-            stack = frames + [np.zeros_like(frames[0])] * (batch_n - len(frames))
-            dev = processor.dispatch_batch(np.stack(stack))
+                tracing.count("fallback_host_decode", sum(tag == "planes" for tag, _ in payloads))
+                frames = [
+                    a
+                    if tag == "frame"
+                    else planes_to_frame_host(a, height * width, bytes_per_pixel)
+                    .view(pixel_dtype)
+                    .reshape(height, width)
+                    for tag, a in payloads
+                ]
+                stack = np.stack(frames + [np.zeros_like(frames[0])] * (batch_n - len(frames)))
+            dev = processor.dispatch_batch(stack)
             imgs = frames
-        inflight.append(("batch", nums, dev, imgs))
-        batch_buf.clear()
+        inflight.append(("batch", nums, dev, imgs, tracing.stamp()))
+        with tracing.span("ffs.release", frame=nums[0], frames=len(nums)):
+            del stack  # copied to the device: the batch on the host can go
+            batch_buf.clear()
         while len(inflight) >= 2:  # keep one batch in flight
             _emit_next()
 
@@ -603,18 +639,21 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
             if len(batch_buf) == batch_n:
                 _flush_batch()
             return
+        tracing.at(num)
         if args.profile:
             res, timings = processor.process_frame_profiled(num, image, want_com=want_com)
-            inflight.append(("frame", num, ("profiled", res, timings), image))
+            inflight.append(("frame", num, ("profiled", res, timings), image, tracing.stamp()))
         else:
-            inflight.append(("frame", num, processor.dispatch(image), image))
+            inflight.append(("frame", num, processor.dispatch(image), image, tracing.stamp()))
         if len(inflight) >= depth:
             _emit_next()
 
     def _drain_decoded(block: bool):
         while decode_q and (block or decode_q[0][1].done() or len(decode_q) > args.threads):
             num, fut = decode_q.popleft()
-            _dispatch_image(num, fut.result())
+            with tracing.span("ffs.decode_wait", frame=num):
+                payload = fut.result()
+            _dispatch_image(num, payload)
 
     prof = None
     if args.jax_profile:
@@ -628,6 +667,8 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
         prof = profile(activities=activities)
         prof.start()
 
+    loop_t0 = tracing.stamp()
+    tracing.record("ffs.setup", t_entry)
     try:
         last_image_received = time.monotonic()
         for image_num in range(num_images):
@@ -635,41 +676,54 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
                 print("Stopping image intake on interrupt")
                 break
             offset_num = image_num + args.start_index
-            wait_start = time.monotonic()
-            while not reader.is_image_available(offset_num):
-                if stop_requested:
-                    break
-                if time.monotonic() - last_image_received > args.timeout:
-                    print(f"Timeout waiting for image {offset_num}")
-                    break
-                time.sleep(0.1)
-            else:
-                last_image_received = time.monotonic()
-                time_waiting += time.monotonic() - wait_start
-                if executor is not None:
+            appeared = True
+            with tracing.span("ffs.reader_wait", frame=offset_num):
+                wait_start = time.monotonic()
+                while not reader.is_image_available(offset_num):
+                    if stop_requested:
+                        appeared = False
+                        break
+                    if time.monotonic() - last_image_received > args.timeout:
+                        print(f"Timeout waiting for image {offset_num}")
+                        appeared = False
+                        break
+                    time.sleep(0.1)
+                if appeared:
+                    last_image_received = time.monotonic()
+                    time_waiting += last_image_received - wait_start
+            if not appeared:
+                break  # interrupt or timeout
+            tracing.count("frames_in")
+            if executor is not None:
+                with tracing.span("ffs.submit", frame=offset_num):
                     decode_q.append((offset_num, executor.submit(_fetch, offset_num)))
-                    _drain_decoded(block=False)
-                else:
-                    _dispatch_image(offset_num, _fetch(offset_num))
-                continue
-            break  # timeout
+                _drain_decoded(block=False)
+            else:
+                with tracing.span("ffs.decode_wait", frame=offset_num):
+                    payload = _fetch(offset_num)
+                _dispatch_image(offset_num, payload)
 
         if executor is not None:
             _drain_decoded(block=True)
-            executor.shutdown(wait=True)
         if use_batch:
             _flush_batch()  # partial tail batch (zero-padded to B)
         while inflight:
             _emit_next()
     finally:
+        loop_t1 = tracing.stamp()
         # stop even when the collection loop raises: the partial trace is
         # most wanted in a crash
+        trace = None
         if prof is not None:
             prof.stop()
             os.makedirs(args.jax_profile, exist_ok=True)
             trace = os.path.join(args.jax_profile, "trace.json")
             prof.export_chrome_trace(trace)
             print(f"Torch profiler trace written to {trace}")
+    if executor is not None:
+        executor.shutdown(wait=True)  # its threads are idle: every image was taken
+
+    epilogue_t0 = tracing.stamp()
 
     # ----- epilogues (reference: spotfinder.cc:1099-1305) -------------------
     if rotation:
@@ -761,6 +815,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
         table.write("results_ffs.h5")
         print(f"Successfully wrote {len(flat)} 2D reflections to HDF5 file")
         print("2D spot analysis complete")
+    tracing.record("ffs.epilogue", epilogue_t0)
 
     total_time = time.monotonic() - all_images_start
     bytes_proc = width * height * reader.get_element_size() * completed
@@ -773,6 +828,16 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
         print(f"Total time waiting for images to appear: {time_waiting * 1000:.0f} ms")
     else:
         print(f"Total time waiting for images to appear: {time_waiting:.2f} s")
+    report = tracing.report(loop_t0, loop_t1, launches={
+        name: fn.launches for name, fn in kernel_wrappers().items()})
+    overflow = report["counters"]["fallback_batch_overflow"]
+    if overflow:
+        print(f"{overflow} frames past the batched per-frame capacity ran on the per-frame path")
+    print(json.dumps({"ffs_trace": report}), flush=True)
+    if trace is not None:
+        spans = os.path.join(args.jax_profile, "spans.json")
+        tracing.write_chrome(spans, trace)
+        print(f"Spans written to {spans}")
     if pipe is not None:
         pipe.close()
     return 2 if validate_failures else 0

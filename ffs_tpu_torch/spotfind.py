@@ -53,6 +53,7 @@ from .ops.compact import compact_from_pcw, compact_from_pcw_segmented
 from .ops.dispersion_extended_packed import dispersion_extended_packed_raw
 from .ops.dispersion_packed import dispersion_packed_raw
 from .ops.masking import resolution_mask
+from .utils import tracing
 
 
 @dataclass
@@ -230,7 +231,10 @@ class SpotfindProcessor:
             torch.cuda.synchronize(self.device)
 
     def _upload(self, image: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        with tracing.span("ffs.upload"):
+            host = np.ascontiguousarray(image)
+            tracing.count("h2d_bytes", host.nbytes)
+            return torch.from_numpy(host).to(self.device)
 
     def _packed(self, image: torch.Tensor) -> torch.Tensor:
         """The packed kernel step -> combined [pc | w32] rows."""
@@ -338,7 +342,9 @@ class SpotfindProcessor:
         takes.  The whole batch runs as one kernel launch and one sparse
         pipeline, so the per-frame overhead amortises over B frames."""
         self._require_batch()
-        return self._batch_step(self._upload(images))
+        images = self._upload(images)
+        with tracing.span("ffs.dispatch"):
+            return self._batch_step(images)
 
     def dispatch_batch_planes(self, planes: np.ndarray, dtype=np.uint16):
         """Queue a batch given as LZ4-decoded bitshuffle planes.
@@ -354,11 +360,13 @@ class SpotfindProcessor:
         self._require_batch()
         dt = np.dtype(dtype)
         check_planes(planes.shape, self.height, self.width, dt.itemsize)
-        frames = frames_from_planes(
-            self._upload(planes), self.height, self.width,
-            torch.uint16 if dt.itemsize == 2 else torch.uint32,
-        )
-        return self._batch_step(frames)
+        planes = self._upload(planes)
+        with tracing.span("ffs.dispatch"):
+            frames = frames_from_planes(
+                planes, self.height, self.width,
+                torch.uint16 if dt.itemsize == 2 else torch.uint32,
+            )
+            return self._batch_step(frames)
 
     def collect_batch(
         self, image_numbers, device_result, images=None, want_com: bool = False
@@ -371,6 +379,10 @@ class SpotfindProcessor:
         frame's pixels sit in their own slot segment and spots never bridge
         frames, so the per-frame slices equal the per-frame path's results.
         """
+        with tracing.span("ffs.collect", frame=image_numbers[0], frames=len(image_numbers)):
+            return self._collect_batch(image_numbers, device_result, images, want_com)
+
+    def _collect_batch(self, image_numbers, device_result, images, want_com) -> list[FrameResult]:
         cfg = self.config
         kf = self._batch_kf
         if self.host_cc:
@@ -399,6 +411,7 @@ class SpotfindProcessor:
                         f"per-frame capacity {kf} and no host frames were "
                         "provided for the per-frame fallback"
                     )
+                tracing.count("fallback_batch_overflow")
                 results.append(self.process_frame(num, images[b], want_com))
                 continue
             sl = slice(b * kf, b * kf + n)
@@ -433,17 +446,22 @@ class SpotfindProcessor:
     def dispatch(self, image: np.ndarray):
         """Queue one frame's device work; returns what :meth:`collect` takes."""
         img_dev = self._upload(image)
-        if self.host_compact:
-            pcw, count = self._count_step(img_dev)
-            return ("hostcompact", image, pcw, count)
-        if self.use_kernel and self.host_cc:
-            # tiered path: kernel now, compaction sized in collect()
-            pcw, count = self._count_step(img_dev)
-            return ("tiered", img_dev, pcw, count)
-        return self._step(img_dev)
+        with tracing.span("ffs.dispatch"):
+            if self.host_compact:
+                pcw, count = self._count_step(img_dev)
+                return ("hostcompact", image, pcw, count)
+            if self.use_kernel and self.host_cc:
+                # tiered path: kernel now, compaction sized in collect()
+                pcw, count = self._count_step(img_dev)
+                return ("tiered", img_dev, pcw, count)
+            return self._step(img_dev)
 
     def collect(self, image_number: int, device_result, want_com: bool = False) -> FrameResult:
         """Wait for a dispatched frame and assemble the host result."""
+        with tracing.span("ffs.collect", frame=image_number):
+            return self._collect(image_number, device_result, want_com)
+
+    def _collect(self, image_number: int, device_result, want_com: bool) -> FrameResult:
         tag = device_result[0]
         if isinstance(tag, str) and tag == "hostcompact":
             _, img_host, pcw, count = device_result
@@ -558,6 +576,7 @@ class SpotfindProcessor:
     def process_frame(
         self, image_number: int, image: np.ndarray, want_com: bool = False
     ) -> FrameResult:
+        tracing.at(image_number)
         return self.collect(image_number, self.dispatch(image), want_com)
 
     def process_frame_profiled(
