@@ -20,6 +20,10 @@
 #include <cstddef>
 #include <vector>
 
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
+
 extern "C" {
 
 // ---------------------------------------------------------------------------
@@ -178,28 +182,144 @@ long long ffs_lz4_compress_block(const uint8_t* src,
 // is bit plane r.
 // ---------------------------------------------------------------------------
 
+// The untranspose works on 8 x 8 bit matrices: the 8 row bytes at column m
+// of one element byte, packed into a 64-bit word with row kk as byte kk,
+// hold bit kk of that byte of elements 8m..8m+7 at bit 8 kk + t; transposed
+// (bit 8 r + c <-> bit 8 c + r), byte t of the word is the byte of element
+// 8m+t.  The SSE2 path (baseline on x86-64) builds 16 such words at a time
+// from 16-byte row loads and writes whole 16-byte vectors of 1-, 2- and
+// 4-byte elements; the columns past the last run of 16, other element
+// sizes and targets without SSE2 take the one-word path.  Both give the
+// bytes of the bit-by-bit definition above for every input.
+static inline uint64_t bit_transpose8x8(uint64_t x) {
+    uint64_t t;
+    t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAULL;
+    x ^= t ^ (t << 7);
+    t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCULL;
+    x ^= t ^ (t << 14);
+    t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ULL;
+    x ^= t ^ (t << 28);
+    return x;
+}
+
+// columns [m_begin, nb) of every element byte, one word at a time
+static void untranspose_words(const uint8_t* in, uint8_t* out, size_t n,
+                              size_t elem_size, size_t m_begin) {
+    const size_t nb = n / 8;
+    for (size_t j = 0; j < elem_size; ++j) {
+        const uint8_t* rows = in + j * n;
+        for (size_t m = m_begin; m < nb; ++m) {
+            uint64_t x = 0;
+            for (size_t kk = 0; kk < 8; ++kk) {
+                x |= static_cast<uint64_t>(rows[kk * nb + m]) << (8 * kk);
+            }
+            x = bit_transpose8x8(x);
+            uint8_t* o = out + 8 * m * elem_size + j;
+            for (size_t t = 0; t < 8; ++t) {
+                o[t * elem_size] = static_cast<uint8_t>(x >> (8 * t));
+            }
+        }
+    }
+}
+
+#if defined(__SSE2__)
+static inline __m128i bit_transpose8x8_epi64(__m128i x) {
+    const __m128i m7 = _mm_set1_epi64x(0x00AA00AA00AA00AALL);
+    const __m128i m14 = _mm_set1_epi64x(0x0000CCCC0000CCCCLL);
+    const __m128i m28 = _mm_set1_epi64x(0x00000000F0F0F0F0LL);
+    __m128i t = _mm_and_si128(_mm_xor_si128(x, _mm_srli_epi64(x, 7)), m7);
+    x = _mm_xor_si128(x, _mm_xor_si128(t, _mm_slli_epi64(t, 7)));
+    t = _mm_and_si128(_mm_xor_si128(x, _mm_srli_epi64(x, 14)), m14);
+    x = _mm_xor_si128(x, _mm_xor_si128(t, _mm_slli_epi64(t, 14)));
+    t = _mm_and_si128(_mm_xor_si128(x, _mm_srli_epi64(x, 28)), m28);
+    return _mm_xor_si128(x, _mm_xor_si128(t, _mm_slli_epi64(t, 28)));
+}
+
+// The 16 words of columns m..m+15 of the 8 rows at `rows` (row stride nb),
+// bit-transposed: v[i] holds the bytes of elements 8(m+2i)..8(m+2i)+15.
+static inline void untranspose_run16(const uint8_t* rows, size_t nb, size_t m,
+                                     __m128i v[8]) {
+    __m128i r[8];
+    for (size_t kk = 0; kk < 8; ++kk) {
+        r[kk] = _mm_loadu_si128(reinterpret_cast<const __m128i*>(rows + kk * nb + m));
+    }
+    // byte pairs of rows (0,1), (2,3), (4,5), (6,7): columns 0-7, 8-15
+    const __m128i a0 = _mm_unpacklo_epi8(r[0], r[1]), a1 = _mm_unpackhi_epi8(r[0], r[1]);
+    const __m128i a2 = _mm_unpacklo_epi8(r[2], r[3]), a3 = _mm_unpackhi_epi8(r[2], r[3]);
+    const __m128i a4 = _mm_unpacklo_epi8(r[4], r[5]), a5 = _mm_unpackhi_epi8(r[4], r[5]);
+    const __m128i a6 = _mm_unpacklo_epi8(r[6], r[7]), a7 = _mm_unpackhi_epi8(r[6], r[7]);
+    // rows 0-3 and 4-7 as 32-bit quads: columns 0-3, 4-7, 8-11, 12-15
+    const __m128i b0 = _mm_unpacklo_epi16(a0, a2), b1 = _mm_unpackhi_epi16(a0, a2);
+    const __m128i b2 = _mm_unpacklo_epi16(a1, a3), b3 = _mm_unpackhi_epi16(a1, a3);
+    const __m128i c0 = _mm_unpacklo_epi16(a4, a6), c1 = _mm_unpackhi_epi16(a4, a6);
+    const __m128i c2 = _mm_unpacklo_epi16(a5, a7), c3 = _mm_unpackhi_epi16(a5, a7);
+    // one 64-bit word a column, row kk in byte kk
+    v[0] = bit_transpose8x8_epi64(_mm_unpacklo_epi32(b0, c0));
+    v[1] = bit_transpose8x8_epi64(_mm_unpackhi_epi32(b0, c0));
+    v[2] = bit_transpose8x8_epi64(_mm_unpacklo_epi32(b1, c1));
+    v[3] = bit_transpose8x8_epi64(_mm_unpackhi_epi32(b1, c1));
+    v[4] = bit_transpose8x8_epi64(_mm_unpacklo_epi32(b2, c2));
+    v[5] = bit_transpose8x8_epi64(_mm_unpackhi_epi32(b2, c2));
+    v[6] = bit_transpose8x8_epi64(_mm_unpacklo_epi32(b3, c3));
+    v[7] = bit_transpose8x8_epi64(_mm_unpackhi_epi32(b3, c3));
+}
+
+static inline void store16(uint8_t* p, __m128i x) {
+    _mm_storeu_si128(reinterpret_cast<__m128i*>(p), x);
+}
+
+// columns [0, 16 * (nb / 16)) of 1-, 2- or 4-byte elements; returns the
+// first column left to the one-word path
+static size_t untranspose_sse2(const uint8_t* in, uint8_t* out, size_t n,
+                               size_t elem_size) {
+    const size_t nb = n / 8;
+    const size_t m_end = nb - nb % 16;
+    if (elem_size != 1 && elem_size != 2 && elem_size != 4) return 0;
+    for (size_t m = 0; m < m_end; m += 16) {
+        __m128i v[4][8];
+        for (size_t j = 0; j < elem_size; ++j) untranspose_run16(in + j * n, nb, m, v[j]);
+        uint8_t* o = out + 8 * m * elem_size;
+        for (size_t i = 0; i < 8; ++i) {
+            if (elem_size == 1) {
+                store16(o + 16 * i, v[0][i]);
+            } else if (elem_size == 2) {
+                store16(o + 32 * i, _mm_unpacklo_epi8(v[0][i], v[1][i]));
+                store16(o + 32 * i + 16, _mm_unpackhi_epi8(v[0][i], v[1][i]));
+            } else {
+                const __m128i lo01 = _mm_unpacklo_epi8(v[0][i], v[1][i]);
+                const __m128i hi01 = _mm_unpackhi_epi8(v[0][i], v[1][i]);
+                const __m128i lo23 = _mm_unpacklo_epi8(v[2][i], v[3][i]);
+                const __m128i hi23 = _mm_unpackhi_epi8(v[2][i], v[3][i]);
+                store16(o + 64 * i, _mm_unpacklo_epi16(lo01, lo23));
+                store16(o + 64 * i + 16, _mm_unpackhi_epi16(lo01, lo23));
+                store16(o + 64 * i + 32, _mm_unpacklo_epi16(hi01, hi23));
+                store16(o + 64 * i + 48, _mm_unpackhi_epi16(hi01, hi23));
+            }
+        }
+    }
+    return m_end;
+}
+#endif
+
 static void bshuf_untranspose_block(const uint8_t* in,
                                     uint8_t* out,
                                     size_t n,  // elements, multiple of 8
                                     size_t elem_size) {
-    const size_t nb = n / 8;
-    for (size_t j = 0; j < elem_size; ++j) {
-        const uint8_t* rows = in + j * n;  // 8 rows of nb bytes each
-        for (size_t m = 0; m < nb; ++m) {
-            uint8_t b[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-            for (size_t kk = 0; kk < 8; ++kk) {
-                const uint8_t r = rows[kk * nb + m];
-                const uint8_t bit = static_cast<uint8_t>(kk);
-                // spread: bit t of r -> bit `bit` of element 8m+t
-                for (size_t t = 0; t < 8; ++t) {
-                    b[t] |= static_cast<uint8_t>(((r >> t) & 1u) << bit);
-                }
-            }
-            for (size_t t = 0; t < 8; ++t) {
-                out[(8 * m + t) * elem_size + j] = b[t];
-            }
-        }
-    }
+    size_t m_begin = 0;
+#if defined(__SSE2__)
+    m_begin = untranspose_sse2(in, out, n, elem_size);
+#endif
+    untranspose_words(in, out, n, elem_size, m_begin);
+}
+
+// Which untranspose the library was built with: 0 the one-word path
+// alone, 1 SSE2.
+int ffs_untranspose_kind() {
+#if defined(__SSE2__)
+    return 1;
+#else
+    return 0;
+#endif
 }
 
 static void bshuf_transpose_block(const uint8_t* in,

@@ -10,10 +10,27 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 
 import numpy as np
 
 from ..utils.native import lib
+
+
+_vector = threading.local()  # .n: chunks this thread decoded through a vector untranspose
+
+
+def untranspose_kind() -> int:
+    """The native library's bit untranspose: 0 its one-word path alone,
+    1 SSE2; -1 without the library (the NumPy decode)."""
+    native = lib()
+    return -1 if native is None else int(native.ffs_untranspose_kind())
+
+
+def vector_decodes() -> int:
+    """Bitshuffle-LZ4 chunks that the calling thread has decoded on the host
+    through a vector untranspose."""
+    return getattr(_vector, "n", 0)
 
 
 def _default_block_elems(elem_size: int) -> int:
@@ -156,6 +173,8 @@ def bshuf_lz4_decompress(
         )
         if rc != 0:
             raise ValueError(f"native bshuf-lz4 decode failed: {rc}")
+        if untranspose_kind() > 0:
+            _vector.n = vector_decodes() + 1
         return out
 
     # NumPy fallback.  Upstream framing (bitshuffle

@@ -236,7 +236,9 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         " frames_in, lines_out, batches, h2d_bytes (frames or planes passed"
         " to the device), fallback_batch_overflow (frames past the batched"
         " capacity, run per frame), fallback_host_decode (planes decoded on"
-        " the host in a mixed batch), and the kernels' launches.",
+        " the host in a mixed batch), host_decode_vector (frames whose"
+        " bitshuffle-LZ4 decode on the host took the vector untranspose),"
+        " and the kernels' launches.",
     )
     return p
 
@@ -250,6 +252,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
 
     from .. import __version__
     from ..bench import kernel_wrappers
+    from ..io import compression
     from ..spotfind import SpotfindConfig, SpotfindProcessor
     from ..utils import torchinit, tracing
 
@@ -559,7 +562,11 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
                 planes = reader.get_image_planes(num)
                 if planes is not None:
                     return ("planes", planes)
-            return ("frame", reader.get_image(num))
+            vector = compression.vector_decodes()
+            image = reader.get_image(num)
+            if compression.vector_decodes() > vector:
+                tracing.count("host_decode_vector")
+            return ("frame", image)
 
     class _LazyFrames:
         """Host frames decoded on demand (the batched overflow fallback and

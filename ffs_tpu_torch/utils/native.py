@@ -70,4 +70,6 @@ def lib() -> ctypes.CDLL | None:
     native.ffs_bitshuffle_decode.restype = ctypes.c_int
     native.ffs_bitshuffle_encode.restype = ctypes.c_int
     native.ffs_cc2d.restype = ctypes.c_int
+    native.ffs_untranspose_kind.argtypes = []
+    native.ffs_untranspose_kind.restype = ctypes.c_int
     return native

@@ -1,10 +1,10 @@
 """Spans and counters of the spotfinder CLI's collection loop.
 
-Counters are always on: :func:`count` is one dict add.  Spans record only
-while tracing is on, which the CLI turns on with ``--jax-profile DIR``
-(:func:`start`); while it is off, :func:`span` returns one shared no-op
-object after a flag check, and :func:`record`, :func:`stamp` and
-:func:`at` return at once.
+Counters are always on: :func:`count` is one dict add under a lock (the
+reader threads count too).  Spans record only while tracing is on, which
+the CLI turns on with ``--jax-profile DIR`` (:func:`start`); while it is
+off, :func:`span` returns one shared no-op object after a flag check, and
+:func:`record`, :func:`stamp` and :func:`at` return at once.
 
 A span keeps ``(name, t0_ns, t1_ns, thread, first image, frames)`` in
 memory, its times from ``time.time_ns()``, the clock of the profiler's
@@ -41,6 +41,7 @@ COUNTERS = (
     "h2d_bytes",  # bytes of frames or planes passed to .to(device)
     "fallback_batch_overflow",  # frames past the batched capacity, run per frame
     "fallback_host_decode",  # planes decoded on the host in a mixed batch
+    "host_decode_vector",  # frames fetched through the host decode's vector untranspose
 )
 QUEUE = 0  # the thread of spans that time a wait in a queue, not a thread's work
 
@@ -65,6 +66,7 @@ class Recorder:
 
     def __init__(self, on: bool):
         self.counts = dict.fromkeys(COUNTERS, 0)
+        self.lock = threading.Lock()
         self.spans: list[tuple] = []  # (name, t0_ns, t1_ns, thread, frame, frames)
         self.main = threading.get_native_id()
         self.open: list[str] = []  # the main thread's open spans, innermost last
@@ -91,7 +93,9 @@ def start(on: bool) -> Recorder:
 
 
 def count(name: str, n: int = 1) -> None:
-    _rec.counts[name] += n
+    rec = _rec
+    with rec.lock:
+        rec.counts[name] += n
 
 
 class _Span:

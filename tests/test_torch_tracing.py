@@ -109,6 +109,29 @@ def test_trace_base_is_read_from_the_head_of_the_trace(tmp_path):
     assert tracing.trace_base_ns(str(path)) == 1790857026000000000
 
 
+def test_count_loses_no_update_across_threads():
+    """Reader threads count beside the main thread: more threads than
+    cores, a switch every microsecond, no add lost."""
+    import sys
+
+    rec = tracing.start(False)
+    n_threads, n_adds = 4 * (os.cpu_count() or 1), 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [tracing.count("host_decode_vector")
+                                                    for _ in range(n_adds)])
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert rec.counts["host_decode_vector"] == n_threads * n_adds
+
+
 # ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
@@ -169,6 +192,25 @@ def test_cli_without_profile_counts_but_records_no_span(shm_dir, tmp_path):  # n
     assert rep["counters"]["frames_in"] == rep["counters"]["lines_out"] == len(lines) == N_IMAGES
     assert sorted(os.listdir(tmp_path / "run")) == []
     assert "spans.json" not in log and "frames past the batched" not in log
+
+
+@pytest.mark.parametrize("mode", ["threads2", "inline", "device_decode"])
+def test_cli_counts_the_vector_host_decode(mode, shm_dir, tmp_path):  # noqa: F811
+    """Every bitshuffle-LZ4 frame of the stream that is decoded on the host,
+    on a reader thread or inline (``--threads 1``), takes the vector
+    untranspose; frames sent to the card as planes are not counted."""
+    from ffs_tpu_torch.io import compression
+
+    args, extra = [str(shm_dir), "--threads", "1" if mode == "inline" else "2"], {}
+    if mode == "device_decode":
+        args += ["--precision", "f32", "--batch", "4", "--min-spot-size", "1",
+                 "--decode-backend", "device"]
+        extra = {"FFS_TORCH_KERNEL_PATH": "1"}
+    log, lines = _run_cli("ffs_tpu_torch", args, tmp_path / "run", extra)
+    c = _ffs_trace(log)["counters"]
+    assert c["frames_in"] == len(lines) == N_IMAGES
+    assert compression.untranspose_kind() > 0
+    assert c["host_decode_vector"] == (0 if mode == "device_decode" else N_IMAGES)
 
 
 def test_cli_prints_the_batched_overflow_fallback(shm_dir, tmp_path, monkeypatch,  # noqa: F811
