@@ -229,16 +229,18 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         " (on the main thread, named in the trace: ffs.reader_wait,"
         " ffs.submit, ffs.decode_wait, ffs.stack, ffs.upload, ffs.dispatch,"
         " ffs.collect, ffs.push3d, ffs.emit, ffs.release; recorded only:"
-        " ffs.fetch on the reader threads, ffs.inflight, ffs.setup,"
+        " ffs.fetch on the reader threads, ffs.inflight, ffs.batch_fill (a"
+        " frame's wait for its batch to fill, --batch), ffs.setup,"
         " ffs.epilogue), writes them to DIR/spans.json on the trace's time"
         " base, and sums them in one line at the end, {\"ffs_trace\": ...}."
         "  That line is printed without the flag too, with the counters only:"
         " frames_in, lines_out, batches, h2d_bytes (frames or planes passed"
         " to the device), fallback_batch_overflow (frames past the batched"
-        " capacity, run per frame), fallback_host_decode (planes decoded on"
-        " the host in a mixed batch), host_decode_vector (frames whose"
-        " bitshuffle-LZ4 decode on the host took the vector untranspose),"
-        " and the kernels' launches.",
+        " capacity, run per frame), fallback_host_decode (frames of a mixed"
+        " batch, decoded on the host although device decode is on),"
+        " device_decode_frames (frames whose bit planes became frames on the"
+        " device), host_decode_vector (frames whose bitshuffle-LZ4 decode on"
+        " the host took the vector untranspose), and the kernels' launches.",
     )
     return p
 
@@ -581,7 +583,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
                 self._cache[b] = reader.get_image(self._nums[b])
             return self._cache[b]
 
-    batch_buf: list = []  # [(image_num, (tag, payload))]
+    batch_buf: list = []  # [(image_num, (tag, payload), stamp of its append)]
     need_host_frames = bool(args.validate or args.writeout)
 
     def _emit_next():
@@ -604,8 +606,10 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
     def _flush_batch():
         if not batch_buf:
             return
-        nums = [n for n, _ in batch_buf]
-        payloads = [p for _, p in batch_buf]
+        nums = [n for n, _, _ in batch_buf]
+        payloads = [p for _, p, _ in batch_buf]
+        for num, _, appended in batch_buf:
+            tracing.record("ffs.batch_fill", appended, num, 1, tracing.QUEUE)
         tracing.count("batches")
         tracing.at(nums[0], len(nums))
         if all(tag == "planes" for tag, _ in payloads):
@@ -613,6 +617,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
                 pls = [a for _, a in payloads]
                 stack = np.stack(pls + [np.zeros_like(pls[0])] * (batch_n - len(pls)))
             dev = processor.dispatch_batch_planes(stack, dtype=pixel_dtype)
+            tracing.count("device_decode_frames", len(nums))
             imgs = _LazyFrames(nums)
         else:
             # mixed batch (a frame fell back mid-stream): decode any planes
@@ -620,7 +625,8 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
             with tracing.span("ffs.stack"):
                 from ..ops.bitshuffle_device import planes_to_frame_host
 
-                tracing.count("fallback_host_decode", sum(tag == "planes" for tag, _ in payloads))
+                if decode_device:  # every frame of it was decoded on the host
+                    tracing.count("fallback_host_decode", len(payloads))
                 frames = [
                     a
                     if tag == "frame"
@@ -642,7 +648,7 @@ def run(argv=None, default_pixel_depth: int = 16) -> int:
     def _dispatch_image(num, payload):
         tag, image = payload
         if use_batch:
-            batch_buf.append((num, (tag, image)))
+            batch_buf.append((num, (tag, image), tracing.stamp()))
             if len(batch_buf) == batch_n:
                 _flush_batch()
             return

@@ -40,10 +40,14 @@ COUNTERS = (
     "batches",  # batches dispatched (--batch)
     "h2d_bytes",  # bytes of frames or planes passed to .to(device)
     "fallback_batch_overflow",  # frames past the batched capacity, run per frame
-    "fallback_host_decode",  # planes decoded on the host in a mixed batch
+    "fallback_host_decode",  # frames of a mixed batch, decoded on the host under device decode
     "host_decode_vector",  # frames fetched through the host decode's vector untranspose
+    "device_decode_frames",  # frames whose bit planes became frames on the device
 )
-QUEUE = 0  # the thread of spans that time a wait in a queue, not a thread's work
+# the thread of spans that time a wait in a queue, not a thread's work:
+# ffs.inflight (dispatched, not yet collected) and ffs.batch_fill (taken in,
+# its batch not yet full)
+QUEUE = 0
 
 _on = False
 
@@ -221,7 +225,7 @@ def write_chrome(path: str, trace_path: str) -> None:
     the profiler's trace at ``trace_path``: ``ts = (t0_ns - base) / 1000``."""
     base = trace_base_ns(trace_path)
     pid = os.getpid()
-    names = {_rec.main: "main", QUEUE: "dispatch-ahead queue"}
+    names = {_rec.main: "main", QUEUE: "queues (batch fill, dispatch-ahead)"}
     events = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid, "args": {"name": n}}
               for tid, n in names.items()]
     for name, t0, t1, thread, frame, frames in _rec.spans:
