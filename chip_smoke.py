@@ -10,25 +10,28 @@ import).  Phases, each of which fails the run:
 
 1. device — a CUDA device must exist; prints the card's name and power limit;
 2. build — compiles every CUDA kernel from ``ffs_tpu_torch/csrc`` with nvcc
-   and prints ptxas's registers, shared memory and spills of the two
-   dispersion walkers;
+   and prints ptxas's registers, shared memory and spills of the three
+   dispersion walkers (float32, extended, float64);
 3. kernels — each dispersion kernel against its plain PyTorch version on the
    card, bit for bit over the whole packed output, on full Eiger 16M frames
    (sample images 2 and 5, a seeded Poisson frame with spots and module
    gaps, a u32 frame with 0xFFFFFFFF sentinels, a frame whose 5x5 spots
    straddle every strip and segment boundary of both walkers' launches),
-   with and without the mask box count;
+   with and without the mask box count; the float64 walker on the u16
+   frames of these;
 4. spotfinder main path — the ``spotfinder`` CLI in-process on the six
    sample frames, f32 (kernels) and f64, both algorithms, reading the pipe
    JSON and holding the anchors (image 2: 9506 px / 9506 spots; image 5:
    2388 px / 2311 spots, extended 3 px); the kernels' launch counters must
-   rise;
+   rise, and the float64 walker must launch once a frame in the f64
+   ``dispersion`` run and in no other;
 5. golden — the f32 pixel lists and host spot tables of images 2 and 5
    against tests/data/bench_anchor_golden.npz (every column, peak_intensity
    included);
 6. times — kernel and plain version per algorithm at Eiger 16M with CUDA
    events: one frame a launch, a B = 8 launch of distinct frames, and the
-   Jungfrau 1M B = 112 batch, each beside its byte bound, with the
+   Jungfrau 1M B = 112 batch (the float64 walker: the u16 Eiger frames),
+   each beside its byte bound, with the
    torch.profiler device time of the walker and scan launches beside the
    events; the CLI's frames/s, and the processor's steady frames/s and
    per-stage times on frames already in host memory;
@@ -244,6 +247,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SIDE = 4362, 4148  # Eiger 16M (H, W)
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 F32_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
+# TPU kernel rows 1-5, the kernels the bench's and the mesh functions' paths
+# run (bench.kernel_wrappers also lists the float64 walker of the CLI's
+# default step, which neither runs)
+ROW_KERNELS = ("dispersion_packed", "dispersion_extended_packed", "window_gather_planes",
+               "window_gather", "bitshuffle_frames")
 # float32 operations per pixel the threshold needs, at least.  Window counts
 # of the mask and of the background are integers, and so is every test on
 # them alone (m > 1, m >= min_count, n > 0, the root of 2(m-1)): integer
@@ -398,6 +406,18 @@ def phase_kernels(dev):
                 )
                 if err:
                     fail(f"{name} on {tag} differs from its plain version (max |diff| {err})")
+        if frame.dtype != np.uint16:
+            continue  # the float64 walker takes u16 frames alone
+        got = dp.dispersion_packed_f64(img, msk, tm)
+        want = dp.dispersion_packed_f64_plain(img, msk, tm)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err["dispersion_packed_f64"] = max(max_err.get("dispersion_packed_f64", 0), err)
+        px = int(got[:, got.shape[-1] // 2 - 1].sum())
+        say(f"kernel {'dispersion_packed_f64':27s} {tag:13s} float64    "
+            f"strong px {px:6d}  bit-equal {err == 0}")
+        if err:
+            fail(f"dispersion_packed_f64 on {tag} differs from its plain version (max |diff| {err})")
     return max_err
 
 
@@ -431,7 +451,7 @@ def phase_main_path():
     import torch
 
     from ffs_tpu_torch.ops.dispersion_extended_packed import dispersion_extended_packed_raw
-    from ffs_tpu_torch.ops.dispersion_packed import dispersion_packed_raw
+    from ffs_tpu_torch.ops.dispersion_packed import dispersion_packed_f64, dispersion_packed_raw
 
     base = ["--sample", "--images", "6", "--wavelength", "0.976", "--min-spot-size", "1"]
     anchors = {
@@ -441,8 +461,10 @@ def phase_main_path():
     fps = {}
     dispersion_packed_raw.launches = 0
     dispersion_extended_packed_raw.launches = 0
+    dispersion_packed_f64.launches = 0
     for precision in ("f32", "f64"):
         for algo, want in anchors.items():
+            f64_before = dispersion_packed_f64.launches
             rc, log, lines, seconds = run_cli(base + ["--precision", precision, "--algorithm", algo])
             if rc != 0:
                 print(log)
@@ -458,6 +480,11 @@ def phase_main_path():
                     spots is not None and got["n_spots_total"] != spots
                 ):
                     fail(f"CLI {precision} {algo} image {img}: {got} != ({px}, {spots})")
+            # the float64 walker: one launch a frame of the f64 dispersion
+            # step (u16 sample frames), none elsewhere
+            f64_launches = dispersion_packed_f64.launches - f64_before
+            if f64_launches != (6 if (precision, algo) == ("f64", "dispersion") else 0):
+                fail(f"CLI {precision} {algo}: {f64_launches} float64 walker launches for 6 frames")
             m = re.search(r"(\d+) images in ([\d.]+) s .*\(([\d.]+) fps\)", log)
             fps[f"{precision} {algo}"] = (float(m.group(3)), seconds)
             say(
@@ -469,6 +496,7 @@ def phase_main_path():
     launches = {
         "dispersion_packed": dispersion_packed_raw.launches,
         "dispersion_extended_packed": dispersion_extended_packed_raw.launches,
+        "dispersion_packed_f64": dispersion_packed_f64.launches,
     }
     say(f"main-path kernel launches: {launches}")
     for name, n in launches.items():
@@ -592,6 +620,30 @@ def phase_times(dev):
                 f"{100 * bound[0] / k:.1f}% of it; {nbytes / k / 1e9:.3f} TB/s")
             if tag == "Eiger 16M x1":
                 out[name] = (k, (p1 + p2) / 2, *bound)
+    # the float64 walker on the u16 Eiger cases, beside its plain version
+    # (ops.dispersion's float64 passes, then pack_pcw); bound by bytes: its
+    # float64 operations, ~16 a pixel, take less at the card's 34 TFLOP/s
+    for tag, img, m in cases[:2]:
+        out_t = dp.dispersion_packed_f64(img, m, 65535.0)
+        n = img.shape[0] if img.dim() == 3 else 1
+        nbytes = sum(t.numel() * t.element_size() for t in (img, m, out_t))
+        bound = bound_ms(nbytes)
+        kernel = lambda: dp.dispersion_packed_f64(img, m, 65535.0)  # noqa: E731
+        plain = lambda: dp.dispersion_packed_f64_plain(img, m, 65535.0)  # noqa: E731
+        p1 = cuda_ms(plain, 10 if n == 1 else 2)
+        k1 = cuda_ms(kernel, 50 if n == 1 else 20)
+        k2 = cuda_ms(kernel, 50 if n == 1 else 20)
+        p2 = cuda_ms(plain, 10 if n == 1 else 2)
+        prof = profiled_ms(kernel, 50 if n == 1 else 20, ("f64_threshold_walker", "pc_scan"))
+        k = (k1 + k2) / 2
+        say(f"time dispersion_packed_f64 {tag}: kernel {k1:.4f} / {k2:.4f} ms a launch "
+            f"({k / n:.5f} a frame), profiler "
+            f"{prof.get('f64_threshold_walker', float('nan')):.4f} walker + "
+            f"{prof.get('pc_scan', float('nan')):.4f} scan ms a launch; plain {p1:.4f} / "
+            f"{p2:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}, {nbytes} B), "
+            f"{100 * bound[0] / k:.1f}% of it; {nbytes / k / 1e9:.3f} TB/s")
+        if tag == "Eiger 16M x1":
+            out["dispersion_packed_f64"] = (k, (p1 + p2) / 2, *bound)
     return out
 
 
@@ -2612,7 +2664,7 @@ def phase_multi(dev, card: str, col, integ) -> dict:
 
     launches = {name: [r["launches"][name] for r in ranks] for name in ranks[0]["launches"]}
     say(f"multi-device kernel launches, one count a rank: {launches}")
-    if min(min(n) for n in launches.values()) == 0:
+    if min(min(launches[name]) for name in ROW_KERNELS) == 0:
         fail(f"multi-device: a rank did not launch a kernel of the path: {launches}")
     return launches
 
@@ -2675,8 +2727,8 @@ def phase_bench(card: str) -> dict:
         fail(f"the bench's last line is not the Eiger metric: {lines[-1]}")
     stages = [x["launches"] for x in lines if "launches" in x]
     launches = {k: sum(st[k] for st in stages) for k in stages[0]}
-    for name, n in launches.items():
-        if n == 0:
+    for name in ROW_KERNELS:
+        if launches[name] == 0:
             fail(f"the bench never launched {name}")
     say(f"bench: exit 0, anchors bit-equal resident and ingest, six metrics on {card}, "
         f"launches {launches}, {seconds:.1f} s with {BENCH_ENV}")
@@ -3595,12 +3647,16 @@ def main() -> int:
     say(f"build: {time.perf_counter() - t0:.1f} s -> {so_path.relative_to(ROOT)}")
     log = cuda_build.build_log().splitlines()
     for k, line in enumerate(log):  # ptxas: "Function properties for <kernel>", then its figures
-        if "Function properties for" in line and "walker" in line:
-            kernel = re.search(r"(dispersion_walker|extended_walker)I([tji])(Lb1)?", line)
+        if "Function properties for" not in line:
+            continue
+        figures = " ".join(x.split(":", 1)[-1].strip() for x in log[k + 1 : k + 3])
+        kernel = re.search(r"(dispersion_walker|extended_walker)I([tji])(Lb1)?", line)
+        if kernel:
             pixel = {"t": "u16", "j": "u32", "i": "i32"}[kernel.group(2)]
             signal = ", signal test" if kernel.group(3) else ""
-            figures = " ".join(x.split(":", 1)[-1].strip() for x in log[k + 1 : k + 3])
             say(f"ptxas {kernel.group(1)}<{pixel}{signal}>: {figures}")
+        elif "f64_threshold_walker" in line:  # not a template: u16 and the signal test
+            say(f"ptxas f64_threshold_walker: {figures}")
 
     # phase 3: kernels against their plain versions
     from ffs_tpu_torch.utils import torchinit
@@ -3722,6 +3778,8 @@ def main() -> int:
                               "ffs_tpu/ops/dispersion_pallas.py:468"),
         "dispersion_extended_packed": ("ffs_tpu_torch/csrc/dispersion_extended_packed.cu",
                                        "ffs_tpu/ops/dispersion_extended_pallas.py:173"),
+        "dispersion_packed_f64": ("ffs_tpu_torch/csrc/f64_threshold.cu",
+                                  "none: the XLA threshold, ffs_tpu/ops/dispersion.py:122"),
         "window_gather_planes": ("ffs_tpu_torch/csrc/window_gather.cu",
                                  "ffs_tpu/ops/window_gather.py:39"),
         "window_gather": ("ffs_tpu_torch/csrc/window_gather.cu",

@@ -68,7 +68,7 @@ from .io import sample_data
 from .ops import connected_components as cc
 from .ops.compact import compact_from_pcw_segmented
 from .ops.dispersion_extended_packed import dispersion_extended_packed_raw
-from .ops.dispersion_packed import dispersion_packed_raw
+from .ops.dispersion_packed import dispersion_packed_f64, dispersion_packed_raw
 from .utils import torchinit
 
 GOLDEN = pathlib.Path(__file__).resolve().parent.parent / "tests" / "data" / "bench_anchor_golden.npz"
@@ -90,12 +90,14 @@ JF_SLOTS, JF_SPOTS = 640, 8192  # Jungfrau slots a frame (checked before timing)
 
 def kernel_wrappers() -> dict:
     """Kernel name -> the wrapper that counts its launches: TPU kernel rows
-    1-5, the kernels this bench's paths run."""
+    1-5, the kernels this bench's paths run, and the float64 walker of the
+    CLI's default step."""
     from .ops import bitshuffle_device, window_gather
 
     return {
         "dispersion_packed": dispersion_packed_raw,
         "dispersion_extended_packed": dispersion_extended_packed_raw,
+        "dispersion_packed_f64": dispersion_packed_f64,
         "window_gather_planes": window_gather.window_gather_planes,
         "window_gather": window_gather.window_gather,
         "bitshuffle_frames": bitshuffle_device.frames_from_planes,

@@ -29,6 +29,11 @@ int32 ``rowcum``, the inclusive per-row prefix count of strong pixels, each
 expands them (``ffs_dispersion_fused`` in ``csrc/dispersion_packed.cu``);
 ``dispersion_fused.launches`` counts its launches.  :func:`dispersion_packed`
 splits the combined rows into ``(w32, pc)`` as the JAX wrapper does.
+
+:func:`dispersion_packed_f64` has no JAX kernel counterpart: the same rows
+from the float64 threshold of uint16 frames, the CLI's default arithmetic
+(``csrc/f64_threshold.cu``, plain version :func:`dispersion_packed_f64_plain`,
+``dispersion_packed_f64.launches``).
 """
 
 from __future__ import annotations
@@ -136,15 +141,18 @@ def walker_tiling(b: int, h: int, w: int, halo: int, slots: int, max_words: int)
 
 @functools.lru_cache(maxsize=64)
 def walker_slots(extended: bool, pixel_type: int, signal_test: bool, wps: int,
-                 device_index: int) -> int:
+                 device_index: int, f64: bool = False) -> int:
     """Walker blocks the card ``device_index`` holds at once for strips of
     ``wps`` words: the kernel's resident blocks a multiprocessor (CUDA's
-    occupancy query, on that card) times its multiprocessors."""
+    occupancy query, on that card) times its multiprocessors.  ``f64``
+    queries the float64 walker (u16 and the signal test only)."""
     from ..utils import cuda_build
 
     lib = cuda_build.lib()
     with torch.cuda.device(device_index):
-        if extended:
+        if f64:
+            per_sm = lib.ffs_f64_walker_blocks_per_sm(wps)
+        elif extended:
             per_sm = lib.ffs_extended_walker_blocks_per_sm(pixel_type, wps)
         else:
             per_sm = lib.ffs_dispersion_walker_blocks_per_sm(pixel_type, int(signal_test), wps)
@@ -154,7 +162,7 @@ def walker_slots(extended: bool, pixel_type: int, signal_test: bool, wps: int,
 
 
 def launch_tiling(frames: torch.Tensor, halo: int, extended: bool,
-                  signal_test: bool) -> WalkerTiling:
+                  signal_test: bool, *, f64: bool = False) -> WalkerTiling:
     """The tiling a walker launch uses for these (B, H, W) CUDA frames."""
     from ..utils import cuda_build
 
@@ -162,7 +170,7 @@ def launch_tiling(frames: torch.Tensor, halo: int, extended: bool,
     dev = frames.device.index if frames.device.index is not None else torch.cuda.current_device()
     max_words = cuda_build.lib().ffs_walker_max_strip_words()
     wps = strip_words(w, max_words)[0]
-    slots = walker_slots(extended, PIXEL_TYPES[frames.dtype], signal_test, wps, dev)
+    slots = walker_slots(extended, PIXEL_TYPES[frames.dtype], signal_test, wps, dev, f64)
     return walker_tiling(b, h, w, halo, slots, max_words)
 
 
@@ -292,6 +300,73 @@ def dispersion_packed_raw(
 
 
 dispersion_packed_raw.launches = 0
+
+
+def dispersion_packed_f64_plain(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+) -> torch.Tensor:
+    """The float64 walker's plain PyTorch version, on any device: the
+    float64 threshold of ``ops.dispersion``, then :func:`pack_pcw`."""
+    strong = dops.dispersion(
+        image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b, nsig_s=nsig_s,
+        dtype=torch.float64,
+    )
+    return pack_pcw(strong, nwl_for_width(image.shape[-1]))
+
+
+def dispersion_packed_f64(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    trusted_max: float,
+    *,
+    min_count: int = DEFAULT_MIN_COUNT,
+    nsig_b: float = DEFAULT_NSIG_B,
+    nsig_s: float = DEFAULT_NSIG_S,
+) -> torch.Tensor:
+    """Float64 dispersion threshold of uint16 frames -> (B?, H, 2*nwl) int32
+    [pc | w32] rows, bit for bit those of :func:`dispersion_packed_f64_plain`.
+
+    ``image`` (H, W) or (B, H, W) uint16 only: above 16 bits a window's sum
+    of squares can pass 2^53, and the kernel's exact-integer sums
+    (``csrc/f64_threshold.cu``) would no longer be the oracle's.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the walker and
+    the row scan, or raises.
+    """
+    if image.dtype != torch.uint16:
+        raise TypeError(f"the float64 walker takes uint16 frames, got {image.dtype}")
+    _check_inputs(image, mask, None)
+    if image.device.type == "cpu":
+        return dispersion_packed_f64_plain(
+            image, mask, trusted_max, min_count=min_count, nsig_b=nsig_b, nsig_s=nsig_s,
+        )
+    if image.device.type != "cuda":
+        raise ValueError(f"no kernel for device {image.device}")
+
+    from ..utils import cuda_build
+
+    frames, mask_c = _cuda_args(image, mask, None)
+    b, h, w = frames.shape
+    nwl = nwl_for_width(w)
+    tiling = launch_tiling(frames, KERNEL_RADIUS, False, True, f64=True)
+    out = torch.empty((b, h, 2 * nwl), dtype=torch.int32, device=image.device)
+    with torch.cuda.device(image.device):
+        rc = cuda_build.lib().ffs_f64_threshold_packed(
+            frames.data_ptr(), mask_c.data_ptr(), out.data_ptr(), b, h, w, nwl, tiling.wps,
+            tiling.seg_rows, float(trusted_max), int(min_count), float(nsig_b), float(nsig_s),
+            _stream(image.device),
+        )
+    dispersion_packed_f64.launches += 1
+    cuda_build.check(rc, "f64 threshold kernel")
+    return out if image.dim() == 3 else out[0]
+
+
+dispersion_packed_f64.launches = 0
 
 
 def dispersion_packed(

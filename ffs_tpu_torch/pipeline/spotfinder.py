@@ -240,7 +240,9 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         " batch, decoded on the host although device decode is on),"
         " device_decode_frames (frames whose bit planes became frames on the"
         " device), host_decode_vector (frames whose bitshuffle-LZ4 decode on"
-        " the host took the vector untranspose), and the kernels' launches.",
+        " the host took the vector untranspose), f64_walker_frames (frames"
+        " whose float64 threshold ran as the float64 walker), and the"
+        " kernels' launches.",
     )
     return p
 

@@ -5,10 +5,13 @@ dispersion threshold, compaction, 2D connected components, per-spot
 statistics and filters for one frame, with the host receiving compact
 per-pixel arrays.  Three forms of the step, chosen by the configuration:
 
-* **fused** — everything on the device: the plain float64/float32 threshold
-  (``ops.dispersion``) and dense compaction, or the packed kernel and
-  ``compact_from_pcw``; then device CC (``ops.connected_components``).
-  The f64 CLI default runs here.
+* **fused** — everything on the device: the packed kernel and
+  ``compact_from_pcw``, or the plain float64/float32 threshold
+  (``ops.dispersion``) and dense compaction; then device CC
+  (``ops.connected_components``).  The f64 CLI default runs here: the
+  float64 ``dispersion`` threshold of a uint16 frame as the float64 walker
+  (``ops.dispersion_packed.dispersion_packed_f64``), other f64 inputs
+  (``dispersion_extended``, 32-bit pixels) through the plain threshold.
 * **tiered** — the packed kernel returns the frame's exact strong-pixel
   count first; compaction then runs at the smallest capacity tier that
   holds it, and the host C++ CC (ops.cc2d_host) labels.  The f32
@@ -51,7 +54,7 @@ from .ops import dispersion as dops
 from .ops.bitshuffle_device import check_planes, frames_from_planes
 from .ops.compact import compact_from_pcw, compact_from_pcw_segmented
 from .ops.dispersion_extended_packed import dispersion_extended_packed_raw
-from .ops.dispersion_packed import dispersion_packed_raw
+from .ops.dispersion_packed import dispersion_packed_f64, dispersion_packed_raw
 from .ops.masking import resolution_mask
 from .utils import tracing
 
@@ -216,6 +219,16 @@ class SpotfindProcessor:
         # the JAX package runs its kernel path with x64 off, where the
         # separation filter evaluates in float32; float64 everywhere else
         self._sep_dtype = torch.float32 if self.use_kernel else torch.float64
+        # off the kernel path, the float64 dispersion threshold of a uint16
+        # frame runs as the float64 walker (the same bits as the plain
+        # threshold); its library loads here, not in the first frame's step
+        self._f64_walker = (
+            not self.use_kernel and cfg.precision == "f64" and cfg.algorithm == "dispersion"
+        )
+        if self._f64_walker and self.device.type == "cuda":
+            from .utils import cuda_build
+
+            cuda_build.lib()
 
         # compaction capacity tiers of the tiered path: typical frames
         # compact at K=4096 instead of the worst-case maximum
@@ -259,10 +272,18 @@ class SpotfindProcessor:
         """The fused per-frame step (device CC unless host CC is on)."""
         cfg = self.config
         neighbors = None
+        pcw = None
         if self.use_kernel:
+            pcw = self._packed(image)
+        elif self._f64_walker and image.dtype == torch.uint16:
+            tracing.count("f64_walker_frames")
+            pcw = dispersion_packed_f64(
+                image, self.mask, self.trusted_max, min_count=cfg.min_count,
+                nsig_b=cfg.nsig_b, nsig_s=cfg.nsig_s,
+            )
+        if pcw is not None:
             pixels, nbu, nbd = compact_from_pcw(
-                image, self._packed(image), max_pixels=cfg.max_strong_pixels,
-                with_neighbors=True,
+                image, pcw, max_pixels=cfg.max_strong_pixels, with_neighbors=True
             )
             neighbors = (nbu, nbd)
         else:
@@ -326,8 +347,9 @@ class SpotfindProcessor:
     # --- public batched interface --------------------------------------------
 
     def batch_supported(self) -> bool:
-        """Batched collection needs the kernel path (the plain dense path has
-        no packed words to segment)."""
+        """Batched collection needs the kernel path: the batched step runs
+        the float32 kernels and a float32 spot table, so the f64 step stays
+        per frame."""
         return self.use_kernel
 
     def _require_batch(self) -> None:

@@ -35,8 +35,8 @@ Each metric line carries the CLI's own fps and GBps (the time from its
 first frame to its last line), the subprocess's wall seconds (interpreter
 start, set-up and kernel loading included), the frames processed, the
 threads, the card's name and power limit, how the table was written, and
-the launches of TPU kernel rows 1-5 (``ffs_tpu_torch.bench.kernel_wrappers``)
-in the run.
+the launches of TPU kernel rows 1-5 and of the float64 walker
+(``ffs_tpu_torch.bench.kernel_wrappers``) in the run.
 A traced run of the device-decode mode follows (the CLI's ``--jax-profile``,
 a torch.profiler trace of its collection loop): the device's busy share of
 the trace's span (the union of its kernels' and copies' intervals), the

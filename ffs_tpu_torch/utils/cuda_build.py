@@ -125,7 +125,7 @@ def build() -> pathlib.Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     kernels = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
     kernels.ffs_dispersion_packed.argtypes = [
         p, i, p, p, i, i, i, i, i, i, f, i, f, f, i, p,
     ]
@@ -142,12 +142,16 @@ def lib() -> ctypes.CDLL:
         p, i, p, p, p, p, i, i, i, i, i, i, f, i, f, f, p,
     ]
     kernels.ffs_dispersion_extended_fused.restype = i
+    kernels.ffs_f64_threshold_packed.argtypes = [p, p, p, i, i, i, i, i, i, d, i, d, d, p]
+    kernels.ffs_f64_threshold_packed.restype = i
     kernels.ffs_walker_max_strip_words.argtypes = []
     kernels.ffs_walker_max_strip_words.restype = i
     kernels.ffs_dispersion_walker_blocks_per_sm.argtypes = [i, i, i]
     kernels.ffs_dispersion_walker_blocks_per_sm.restype = i
     kernels.ffs_extended_walker_blocks_per_sm.argtypes = [i, i]
     kernels.ffs_extended_walker_blocks_per_sm.restype = i
+    kernels.ffs_f64_walker_blocks_per_sm.argtypes = [i]
+    kernels.ffs_f64_walker_blocks_per_sm.restype = i
     kernels.ffs_window_gather_planes.argtypes = [p, i, i, i, p, p, i, i, p, p]
     kernels.ffs_window_gather_planes.restype = i
     kernels.ffs_window_gather.argtypes = [p, i, i, p, p, i, i, p, p]

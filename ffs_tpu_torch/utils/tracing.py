@@ -43,6 +43,7 @@ COUNTERS = (
     "fallback_host_decode",  # frames of a mixed batch, decoded on the host under device decode
     "host_decode_vector",  # frames fetched through the host decode's vector untranspose
     "device_decode_frames",  # frames whose bit planes became frames on the device
+    "f64_walker_frames",  # frames whose float64 threshold ran as the float64 walker
 )
 # the thread of spans that time a wait in a queue, not a thread's work:
 # ffs.inflight (dispatched, not yet collected) and ffs.batch_fill (taken in,

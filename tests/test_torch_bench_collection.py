@@ -56,8 +56,8 @@ def test_main_runs_every_mode(small, monkeypatch, capsys):
         assert x["spots"] > 0 and x["strong_pixels"] > 0
         assert x["batch"] == (1 if mode == "f64" else 8)
         assert set(x["launches"]) == {"dispersion_packed", "dispersion_extended_packed",
-                                      "window_gather_planes", "window_gather",
-                                      "bitshuffle_frames"}
+                                      "dispersion_packed_f64", "window_gather_planes",
+                                      "window_gather", "bitshuffle_frames"}
     assert {"check": "host_vs_device_decode", "ok": True,
             "spots": metrics[bc.METRICS["host"]]["spots"], "images": 4} in lines
     busy = metrics["collection_device_busy"]
