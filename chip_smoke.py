@@ -248,7 +248,7 @@ SIDE = 4362, 4148  # Eiger 16M (H, W)
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 F32_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
 # TPU kernel rows 1-5, the kernels the bench's and the mesh functions' paths
-# run (bench.kernel_wrappers also lists the float64 walker of the CLI's
+# run (ops.kernel_wrappers also lists the float64 walker of the CLI's
 # default step, which neither runs)
 ROW_KERNELS = ("dispersion_packed", "dispersion_extended_packed", "window_gather_planes",
                "window_gather", "bitshuffle_frames")
@@ -2450,7 +2450,7 @@ def multi_rank(backend: str, store: str, kabsch: dict, integ_kw: dict) -> dict:
         pm.all_reduce(zero, mesh)
         return res, 1e3 * (time.perf_counter() - t0)
 
-    from ffs_tpu_torch.bench import kernel_wrappers
+    from ffs_tpu_torch.ops import kernel_wrappers
 
     wrappers = kernel_wrappers()  # TPU kernel rows 1-5
     for fn in wrappers.values():
@@ -2865,7 +2865,7 @@ def phase_tools(dev, card: str) -> dict:
     of its own; returns the launches of kernel rows 1-5 the three made."""
     import torch
 
-    from ffs_tpu_torch.bench import kernel_wrappers
+    from ffs_tpu_torch.ops import kernel_wrappers
     from ffs_tpu_torch.tools import fuzz_integrator, fuzz_spotfind
 
     wrappers = kernel_wrappers()
@@ -3092,7 +3092,7 @@ def phase_chain(dev, card: str) -> dict:
     rows 1-5 in the phase."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ffs_tpu_torch.bench import kernel_wrappers
+    from ffs_tpu_torch.ops import kernel_wrappers
     from ffs_tpu_torch.io import compression
     from ffs_tpu_torch.io.shm import SHMRead
     from ffs_tpu_torch.models.experiment import Experiment

@@ -66,9 +66,10 @@ import torch
 
 from .io import sample_data
 from .ops import connected_components as cc
+from .ops import kernel_wrappers
 from .ops.compact import compact_from_pcw_segmented
 from .ops.dispersion_extended_packed import dispersion_extended_packed_raw
-from .ops.dispersion_packed import dispersion_packed_f64, dispersion_packed_raw
+from .ops.dispersion_packed import dispersion_packed_raw
 from .utils import torchinit
 
 GOLDEN = pathlib.Path(__file__).resolve().parent.parent / "tests" / "data" / "bench_anchor_golden.npz"
@@ -86,22 +87,6 @@ SIZES = {"batch": (8, 2), "max_px": (24576, 2048), "max_spots": (12288, 1024),
 REPS = {"FFS_BENCH_REPS": (128, 2), "FFS_BENCH_INT_REPS": (16, 2),
         "FFS_BENCH_INT_EFF_SCALE": (1.0, 0.01), "FFS_BENCH_SSX_REPS": (2, 1)}
 JF_SLOTS, JF_SPOTS = 640, 8192  # Jungfrau slots a frame (checked before timing), spots a table
-
-
-def kernel_wrappers() -> dict:
-    """Kernel name -> the wrapper that counts its launches: TPU kernel rows
-    1-5, the kernels this bench's paths run, and the float64 walker of the
-    CLI's default step."""
-    from .ops import bitshuffle_device, window_gather
-
-    return {
-        "dispersion_packed": dispersion_packed_raw,
-        "dispersion_extended_packed": dispersion_extended_packed_raw,
-        "dispersion_packed_f64": dispersion_packed_f64,
-        "window_gather_planes": window_gather.window_gather_planes,
-        "window_gather": window_gather.window_gather,
-        "bitshuffle_frames": bitshuffle_device.frames_from_planes,
-    }
 
 
 def card_name(device: torch.device) -> str:

@@ -12,6 +12,7 @@ saturation/underload, omega).
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,6 +48,10 @@ class NexusReader:
         import h5py
 
         self._path = path
+        # the spotfinder's reader threads read chunks while its main thread
+        # polls (a SWMR refresh): HDF5 calls from two threads at once break
+        # the read, so each holds this lock; decoding runs outside it
+        self._hdf5 = threading.Lock()
         try:
             self._f = h5py.File(path, "r", swmr=True)
         except (OSError, ValueError):
@@ -219,42 +224,44 @@ class NexusReader:
             return False
         try:
             b, local = self._block_for(index)
-            ds = self._dataset_for(b)
-            ds.id.refresh()
-            return ds.shape[0] > local
+            with self._hdf5:
+                ds = self._dataset_for(b)
+                ds.id.refresh()
+                return ds.shape[0] > local
         except Exception:
             return False
 
     def get_image(self, index: int) -> np.ndarray:
         """Read + decode one frame, bypassing HDF5 filter plugins."""
         b, local = self._block_for(index)
-        ds = self._dataset_for(b)
-        if b.filters is None:
-            # the filter pipeline is a per-dataset constant: walk it once,
-            # not per frame (a 3600-frame read otherwise repeats 3600
-            # create-plist/filter-enumeration HDF5 round-trips)
-            b.filters = tuple(
-                f_id for f_id, *_ in self._chunk_filters(ds)
-            )
-        filters = b.filters
-        if FILTER_BSHUF in filters or FILTER_LZ4 in filters:
+        with self._hdf5:
+            ds = self._dataset_for(b)
+            if b.filters is None:
+                # the filter pipeline is a per-dataset constant: walk it once,
+                # not per frame (a 3600-frame read otherwise repeats 3600
+                # create-plist/filter-enumeration HDF5 round-trips)
+                b.filters = tuple(
+                    f_id for f_id, *_ in self._chunk_filters(ds)
+                )
+            filters = b.filters
+            if not (FILTER_BSHUF in filters or FILTER_LZ4 in filters):
+                return ds[local]  # uncompressed / gzip: h5py handles it
             _, chunk = ds.id.read_direct_chunk((local, 0, 0))
-            h, w = self.image_shape
-            if FILTER_BSHUF in filters:
-                flat = compression.bshuf_lz4_decompress(
-                    chunk, h * w, self._dtype.itemsize
-                )
-            else:  # plain LZ4 filter: same framing without bit transpose
-                flat = compression.lz4_chunk_decompress(
-                    chunk, h * w * self._dtype.itemsize
-                )
-            return flat.view(self._dtype).reshape(h, w)
-        # uncompressed / gzip: h5py handles it
-        return ds[local]
+        h, w = self.image_shape
+        if FILTER_BSHUF in filters:
+            flat = compression.bshuf_lz4_decompress(
+                chunk, h * w, self._dtype.itemsize
+            )
+        else:  # plain LZ4 filter: same framing without bit transpose
+            flat = compression.lz4_chunk_decompress(
+                chunk, h * w * self._dtype.itemsize
+            )
+        return flat.view(self._dtype).reshape(h, w)
 
     def get_raw_chunk(self, index: int) -> bytes:
         b, local = self._block_for(index)
-        return self._dataset_for(b).id.read_direct_chunk((local, 0, 0))[1]
+        with self._hdf5:
+            return self._dataset_for(b).id.read_direct_chunk((local, 0, 0))[1]
 
     def get_image_planes(self, index: int) -> np.ndarray | None:
         """LZ4-only decode of one frame for the device-side bitshuffle
@@ -263,15 +270,16 @@ class NexusReader:
         is not bitshuffle-LZ4 compressed (caller falls back to
         :meth:`get_image`)."""
         b, local = self._block_for(index)
-        ds = self._dataset_for(b)
-        if b.filters is None:
-            b.filters = tuple(f_id for f_id, *_ in self._chunk_filters(ds))
-        if FILTER_BSHUF not in b.filters:
-            return None
         h, w = self.image_shape
-        if (h * w) % 8:
-            return None  # raw <8-element tail: keep the host decode
-        _, chunk = ds.id.read_direct_chunk((local, 0, 0))
+        with self._hdf5:
+            ds = self._dataset_for(b)
+            if b.filters is None:
+                b.filters = tuple(f_id for f_id, *_ in self._chunk_filters(ds))
+            if FILTER_BSHUF not in b.filters:
+                return None
+            if (h * w) % 8:
+                return None  # raw <8-element tail: keep the host decode
+            _, chunk = ds.id.read_direct_chunk((local, 0, 0))
         planes, _tail, _be, _ns = compression.bshuf_lz4_planes(
             chunk, h * w, self._dtype.itemsize
         )

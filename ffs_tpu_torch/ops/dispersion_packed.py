@@ -11,7 +11,7 @@ compaction stages read, one (B?, H, 2*nwl) int32 array with lanes [pc | w32]:
   through word j, so ``pc[..., h, nwl-1]`` is the row total.
 
 ``nwl = nwl_for_width(W)`` exactly as on the JAX side, because
-the host compaction (ops.compact_host) reads the same array.
+the JAX package's host compaction reads the same array.
 
 :func:`dispersion_packed_raw` picks by the image tensor's device: a CPU
 tensor takes the plain PyTorch version :func:`dispersion_packed_plain`

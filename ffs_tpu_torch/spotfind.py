@@ -3,7 +3,7 @@
 Counterpart of :mod:`ffs_tpu.spotfind` (its per-frame processor): the
 dispersion threshold, compaction, 2D connected components, per-spot
 statistics and filters for one frame, with the host receiving compact
-per-pixel arrays.  Three forms of the step, chosen by the configuration:
+per-pixel arrays.  Two forms of the step, chosen by the configuration:
 
 * **fused** — everything on the device: the packed kernel and
   ``compact_from_pcw``, or the plain float64/float32 threshold
@@ -16,8 +16,6 @@ per-pixel arrays.  Three forms of the step, chosen by the configuration:
   count first; compaction then runs at the smallest capacity tier that
   holds it, and the host C++ CC (ops.cc2d_host) labels.  The f32
   kernel path runs here.
-* **hostcompact** — the device stops at the packed words; the host expands
-  the set bits against its own frame copy (ops.compact_host).
 
 Batched collection (:meth:`SpotfindProcessor.dispatch_batch`,
 :meth:`~SpotfindProcessor.dispatch_batch_planes`,
@@ -35,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -84,9 +82,6 @@ class SpotfindConfig:
     # "host" labels on the CPU (C++ union-find), "device" on the torch
     # device, "auto" = host whenever the kernel path is on
     cc_backend: str = "auto"  # "auto" | "host" | "device"
-    # "host" ends the device's job at the packed words: the host expands
-    # the set bits against its frame copy.  Needs the kernel path + host CC
-    compact_backend: str = "device"  # "device" | "host"
 
     @property
     def dtype(self) -> torch.dtype:
@@ -104,20 +99,20 @@ class SpotfindConfig:
             return False
         return self.kernel_enabled(device)
 
-    def host_compact_enabled(self, device: torch.device) -> bool:
-        return (
-            self.compact_backend == "host"
-            and self.kernel_enabled(device)
-            and self.host_cc_enabled(device)
-        )
-
 
 def config_from_dict(d: dict) -> SpotfindConfig:
     """The port's config from ``dataclasses.asdict`` of an
     :class:`ffs_tpu.spotfind.SpotfindConfig`: ``use_pallas`` becomes
-    ``use_kernel`` and ``pallas_interpret`` (a Mosaic test hook) is dropped."""
+    ``use_kernel``, ``pallas_interpret`` (a Mosaic test hook) is dropped, and
+    so is ``compact_backend`` at its default, ``"device"``: the port has no
+    host compaction, so ``"host"`` raises ValueError."""
     d = dict(d)
     d.pop("pallas_interpret", None)
+    if d.get("compact_backend", "device") != "device":
+        raise ValueError(
+            f"compact_backend={d['compact_backend']!r}: the port compacts on the device only"
+        )
+    d.pop("compact_backend", None)
     if "use_pallas" in d:
         d["use_kernel"] = d.pop("use_pallas")
     names = {f.name for f in dataclasses.fields(SpotfindConfig)}
@@ -155,16 +150,18 @@ def _capacity_error(image_number: int, n: int, capacity: int, what: str) -> Runt
     )
 
 
-class SpotfindProcessor:
-    """Per-frame spotfinding step for a fixed detector configuration.
+class _Tiered(NamedTuple):
+    """What :meth:`SpotfindProcessor.dispatch` returns on the tiered path:
+    the frame on the device, its packed words and their exact count, from
+    which :meth:`~SpotfindProcessor.collect` compacts at the smallest tier."""
 
-    ``config.compact_backend == "host"`` needs the kernel path (float32 on
-    a CUDA device, or ``use_kernel=True``) and host CC: without them the
-    constructor raises ValueError.  With the CLI's ``--precision f64`` that
-    means the option stops the run rather than being ignored, as the JAX
-    CLI's help would have it (ffs_tpu/spotfind.py:151-156 raises the same
-    way).
-    """
+    image: torch.Tensor
+    pcw: torch.Tensor
+    count: torch.Tensor
+
+
+class SpotfindProcessor:
+    """Per-frame spotfinding step for a fixed detector configuration."""
 
     def __init__(
         self,
@@ -204,18 +201,6 @@ class SpotfindProcessor:
 
         self.use_kernel = cfg.kernel_enabled(self.device)
         self.host_cc = cfg.host_cc_enabled(self.device)
-        self.host_compact = cfg.host_compact_enabled(self.device)
-        if cfg.compact_backend == "host" and not self.use_kernel:
-            raise ValueError(
-                "compact_backend='host' expands the packed strong words on "
-                "the host; it requires the kernel path (f32 precision on a "
-                "CUDA device, or use_kernel=True)"
-            )
-        if cfg.compact_backend == "host" and not self.host_cc:
-            raise ValueError(
-                "compact_backend='host' produces host arrays; it cannot feed "
-                "cc_backend='device' — use cc_backend 'host' or 'auto'"
-            )
         # the JAX package runs its kernel path with x64 off, where the
         # separation filter evaluates in float32; float64 everywhere else
         self._sep_dtype = torch.float32 if self.use_kernel else torch.float64
@@ -263,7 +248,7 @@ class SpotfindProcessor:
         )
 
     def _count_step(self, image: torch.Tensor):
-        """Kernel step of the tiered/hostcompact paths: (pcw, exact count)."""
+        """Kernel step of the tiered path: (pcw, exact count)."""
         pcw = self._packed(image)
         nwl = pcw.shape[-1] // 2
         return pcw, pcw[:, nwl - 1].sum()
@@ -469,13 +454,9 @@ class SpotfindProcessor:
         """Queue one frame's device work; returns what :meth:`collect` takes."""
         img_dev = self._upload(image)
         with tracing.span("ffs.dispatch"):
-            if self.host_compact:
-                pcw, count = self._count_step(img_dev)
-                return ("hostcompact", image, pcw, count)
             if self.use_kernel and self.host_cc:
                 # tiered path: kernel now, compaction sized in collect()
-                pcw, count = self._count_step(img_dev)
-                return ("tiered", img_dev, pcw, count)
+                return _Tiered(img_dev, *self._count_step(img_dev))
             return self._step(img_dev)
 
     def collect(self, image_number: int, device_result, want_com: bool = False) -> FrameResult:
@@ -484,14 +465,9 @@ class SpotfindProcessor:
             return self._collect(image_number, device_result, want_com)
 
     def _collect(self, image_number: int, device_result, want_com: bool) -> FrameResult:
-        tag = device_result[0]
-        if isinstance(tag, str) and tag == "hostcompact":
-            _, img_host, pcw, count = device_result
-            return self._collect_hostcompact(image_number, img_host, pcw, int(count), want_com)
-        if isinstance(tag, str) and tag == "tiered":
-            _, img_dev, pcw, count = device_result
-            tier = self._tier(image_number, int(count))
-            pixels = compact_from_pcw(img_dev, pcw, max_pixels=tier)
+        if isinstance(device_result, _Tiered):
+            tier = self._tier(image_number, int(device_result.count))
+            pixels = compact_from_pcw(device_result.image, device_result.pcw, max_pixels=tier)
             return self._collect_host(image_number, pixels, want_com)
         if self.host_cc:
             (pixels,) = device_result
@@ -531,37 +507,6 @@ class SpotfindProcessor:
             pixels=frame_pixels,
             centers_of_mass=coms,
         )
-
-    def _collect_hostcompact(
-        self,
-        image_number: int,
-        img_host: np.ndarray,
-        pcw: torch.Tensor,
-        n: int,
-        want_com: bool,
-        timings: dict | None = None,
-    ) -> FrameResult:
-        """Host-compaction epilogue: copy the packed words to the host,
-        expand the set bits against the host frame, label + tabulate there.
-        ``timings`` (profiled path) receives 'compact' and 'post' ms."""
-        from .ops.compact_host import compact_pcw_host
-
-        if n > self.config.max_strong_pixels:
-            raise _capacity_error(
-                image_number, n, self.config.max_strong_pixels, "configured capacity"
-            )
-        t0 = time.perf_counter()
-        lin, inten = compact_pcw_host(_host(pcw), img_host, self.width)
-        t1 = time.perf_counter()
-        result = self._collect_host(
-            image_number,
-            cc.CompactPixels(linear_index=lin, intensity=inten, count=n),
-            want_com,
-        )
-        if timings is not None:
-            timings["compact"] = (t1 - t0) * 1e3  # d2h + host bit scan
-            timings["post"] = (time.perf_counter() - t1) * 1e3
-        return result
 
     def _collect_host(self, image_number: int, pixels, want_com: bool) -> FrameResult:
         """Label + tabulate on the host (C++ union-find over ~3k pixels)."""
@@ -608,8 +553,8 @@ class SpotfindProcessor:
         per-image CUDA-event breakdown, spotfinder.cc:1054-1087).  Each
         stage synchronises the device before the next is timed.  Stages:
         upload, kernel (threshold + packed words), compact, post (CC +
-        table + filters) on the tiered/hostcompact paths; upload and the
-        fused device step otherwise."""
+        table + filters) on the tiered path; upload and the fused device
+        step otherwise."""
         timings: dict[str, float] = {}
 
         def tick(name, fn):
@@ -622,13 +567,7 @@ class SpotfindProcessor:
         img_dev = tick("upload", lambda: self._upload(image))
         if self.use_kernel and self.host_cc:
             pcw, count = tick("kernel", lambda: self._count_step(img_dev))
-            n = int(count)
-            if self.host_compact:
-                result = self._collect_hostcompact(
-                    image_number, image, pcw, n, want_com, timings=timings
-                )
-                return result, timings
-            tier = self._tier(image_number, n)
+            tier = self._tier(image_number, int(count))
             pixels = tick("compact", lambda: compact_from_pcw(img_dev, pcw, max_pixels=tier))
             result = tick("post", lambda: self._collect_host(image_number, pixels, want_com))
             return result, timings

@@ -21,9 +21,8 @@ each, named as in the JAX tool:
   precision, which the service runs (it passes no ``--precision``): per
   frame, the plain float64 threshold and device CC;
 * ``host`` and ``device``, ``collection_end_to_end_fps_{host,device}_decode``:
-  ``--precision f32 --batch B --decode-backend host|device
-  --compact-backend device``, the kernel path in batches of
-  ``FFS_COLL_BATCH`` (default 8).
+  ``--precision f32 --batch B --decode-backend host|device``, the kernel
+  path in batches of ``FFS_COLL_BATCH`` (default 8).
 
 Two quirks of the JAX tool are not copied: it passes no ``--precision``, so
 its CLI falls back from ``--batch`` and device decode to the per-frame f64
@@ -36,7 +35,7 @@ first frame to its last line), the subprocess's wall seconds (interpreter
 start, set-up and kernel loading included), the frames processed, the
 threads, the card's name and power limit, how the table was written, and
 the launches of TPU kernel rows 1-5 and of the float64 walker
-(``ffs_tpu_torch.bench.kernel_wrappers``) in the run.
+(``ffs_tpu_torch.ops.kernel_wrappers``) in the run.
 A traced run of the device-decode mode follows (the CLI's ``--jax-profile``,
 a torch.profiler trace of its collection loop): the device's busy share of
 the trace's span (the union of its kernels' and copies' intervals), the
@@ -271,7 +270,7 @@ def mode_args(mode: str, n_frames: int, batch: str) -> list[str]:
         return ["--images", str(n_frames)]
     if mode in ("host", "device"):
         return ["--precision", "f32", "--batch", batch, "--decode-backend", mode,
-                "--compact-backend", "device", "--images", str(n_frames)]
+                "--images", str(n_frames)]
     raise ValueError(f"unknown mode {mode!r}: expected f64, host or device")
 
 
@@ -384,7 +383,7 @@ def cli_main(argv: list[str]) -> int:
     """``spotfinder.run(argv)``, then a line of the kernel launches it
     made.  Where h5py is missing (``ReflectionTable.write`` needs it), the
     table's columns go to ``<path>.npz``."""
-    from ..bench import kernel_wrappers
+    from ..ops import kernel_wrappers
     from ..models.reflection_table import ReflectionTable
     from ..pipeline import spotfinder
 

@@ -5,7 +5,7 @@ built with the system ``g++`` on first use into ``ffs_tpu_torch/_build/``
 (gitignored) under a name keyed by a hash of the source, so a stale binary
 never shadows the source.  Returns None when the library cannot be built
 or loaded; callers then take their NumPy implementations
-(:mod:`..io.compression`, :mod:`..ops.cc2d_host`, :mod:`..ops.compact_host`).
+(:mod:`..io.compression`, :mod:`..ops.cc2d_host`).
 """
 
 from __future__ import annotations

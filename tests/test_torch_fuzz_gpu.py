@@ -11,7 +11,7 @@ False (decided inside the fixture).  On a GPU machine:
 import pytest
 import torch
 
-from ffs_tpu_torch.bench import kernel_wrappers
+from ffs_tpu_torch.ops import kernel_wrappers
 from ffs_tpu_torch.tools import fuzz_integrator, fuzz_spotfind
 
 pytestmark = pytest.mark.gpu

@@ -123,7 +123,6 @@ def test_kernel_rejects_bad_inputs(cuda):
     [
         dict(precision="f32"),
         dict(precision="f32", algorithm="dispersion_extended"),
-        dict(precision="f32", compact_backend="host"),
         dict(precision="f32", cc_backend="device"),
         dict(precision="f64"),
         dict(precision="f64", cc_backend="host", algorithm="dispersion_extended"),

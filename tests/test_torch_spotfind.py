@@ -32,7 +32,6 @@ CASES = {
         precision="f32", use_pallas=True, algorithm="dispersion_extended"
     ),
     "f32-kernel-device-cc": dict(precision="f32", use_pallas=True, cc_backend="device"),
-    "f32-kernel-hostcompact": dict(precision="f32", use_pallas=True, compact_backend="host"),
 }
 
 
@@ -80,7 +79,7 @@ def test_processor_matches_jax(small_frame, case):
     frames, mask = _frames(small_frame)
     jproc, tproc = _processors(frames[0].shape, mask, **CASES[case])
     assert tproc.use_kernel == bool(jproc.config.pallas_enabled())
-    assert tproc.host_cc == jproc.host_cc and tproc.host_compact == jproc.host_compact
+    assert tproc.host_cc == jproc.host_cc and not jproc.host_compact
     com_rtol = 1e-12 if (not tproc.host_cc and tproc.config.precision == "f64") else 0
     for num, frame in enumerate(frames):
         want = jproc.process_frame(num, frame, want_com=True)
@@ -90,7 +89,7 @@ def test_processor_matches_jax(small_frame, case):
         assert got.n_strong_pixels > 0 and len(got.centers_of_mass) > 0
 
 
-@pytest.mark.parametrize("case", ["f64-device-cc", "f32-kernel-tiered", "f32-kernel-hostcompact"])
+@pytest.mark.parametrize("case", ["f64-device-cc", "f32-kernel-tiered"])
 def test_profiled_matches_plain_dispatch(small_frame, case):
     frames, mask = _frames(small_frame)
     jproc, tproc = _processors(frames[0].shape, mask, **CASES[case])
@@ -109,7 +108,7 @@ def _overflow_frame(h=256, w=320):
 
 
 @pytest.mark.parametrize("case", ["f64-device-cc", "f64-host-cc", "f32-kernel-tiered",
-                                  "f32-kernel-device-cc", "f32-kernel-hostcompact"])
+                                  "f32-kernel-device-cc"])
 def test_capacity_overflow_hard_fails(case):
     image, mask = _overflow_frame()
     kw = dict(CASES[case], max_strong_pixels=64, max_spots=256, min_spot_size=1)
@@ -152,7 +151,10 @@ def test_config_round_trip_and_device_rules():
     assert auto.kernel_enabled(torch.device("cuda", 0))
     assert not tsf.SpotfindConfig().kernel_enabled(torch.device("cuda", 0))
     image, mask = _overflow_frame()
+    # the port compacts on the device only: ffs_tpu's default is accepted
+    # (and dropped), its host compaction refused
+    assert tcfg == tsf.config_from_dict({**dataclasses.asdict(jcfg), "compact_backend": "device"})
     with pytest.raises(ValueError, match="compact_backend='host'"):
-        tsf.SpotfindProcessor(320, 256, mask, TM, tsf.SpotfindConfig(compact_backend="host"), device=CPU)
+        tsf.config_from_dict({**dataclasses.asdict(jcfg), "compact_backend": "host"})
     proc = tsf.SpotfindProcessor(320, 256, mask, TM, device=CPU)
     assert proc.batch_supported() is False

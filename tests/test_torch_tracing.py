@@ -197,7 +197,7 @@ def test_cli_without_profile_counts_but_records_no_span(shm_dir, tmp_path):  # n
 @pytest.mark.parametrize("mode", ["threads2", "inline", "device_decode"])
 def test_cli_counts_the_vector_host_decode(mode, shm_dir, tmp_path):  # noqa: F811
     """Every bitshuffle-LZ4 frame of the stream that is decoded on the host,
-    on a reader thread or inline (``--threads 1``), takes the vector
+    on two reader threads or one (``--threads 1``), takes the vector
     untranspose; frames sent to the card as planes are not counted."""
     from ffs_tpu_torch.io import compression
 
