@@ -11,7 +11,7 @@ one by one or in batches of ``--batch`` B (``ffs.stack``).  A collected
 frame is emitted: its 3D push, its pipe line, its log lines, ``--validate``
 and ``--writeout``.
 
-Three rules bound the queues between those stages:
+Four rules bound the queues between those stages:
 
 1. **Frames in flight** (per frame): at most :func:`frames_in_flight`,
    ``max(2, min(threads, 8))``, frames are dispatched and not yet
@@ -24,6 +24,13 @@ Three rules bound the queues between those stages:
    then the main thread blocks on it (``ffs.decode_wait``); see
    :meth:`Collection._decode_head_due`.  When intake ends, the queue
    drains in order.
+4. **The idle drain**: when intake finds the next image not there yet,
+   the main thread has nothing else to do, so before it polls on it
+   dispatches every frame in the decode queue (blocking on each) and
+   emits every frame in flight (:meth:`Collection._drain_idle`).  A live
+   frame's line then waits for its own work, not for later frames to
+   arrive; a partial batch stays in the buffer.  While the next image is
+   there, rule 4 never runs, and rules 1-3 alone order the loop.
 
 Every queue is first in, first out, so lines come out in image order and
 the 3D merge takes frames in acquisition order.  A partial tail batch is
@@ -241,19 +248,37 @@ class Collection:
 
     def _wait_for(self, num: int) -> bool:
         """The availability poll: True once image ``num`` is there; False on
-        an interrupt, or when no image has come for ``--timeout`` seconds."""
+        an interrupt, or when no image has come for ``--timeout`` seconds.
+        When the first check misses, rule 4 runs before the poll goes on;
+        ``ffs.reader_wait`` and :attr:`time_waiting` leave its work out."""
         with tracing.span("ffs.reader_wait", frame=num):
             wait_start = time.monotonic()
-            while not self.reader.is_image_available(num):
-                if self.stop.is_set():
-                    return False
-                if time.monotonic() - self._last_received > self.args.timeout:
-                    print(f"Timeout waiting for image {num}")
-                    return False
-                time.sleep(0.1)
-            self._last_received = time.monotonic()
-            self.time_waiting += self._last_received - wait_start
+            there = self.reader.is_image_available(num)
+            self.time_waiting += time.monotonic() - wait_start
+        if not there:
+            self._drain_idle()
+            with tracing.span("ffs.reader_wait", frame=num):
+                wait_start = time.monotonic()
+                while not self.reader.is_image_available(num):
+                    if self.stop.is_set():
+                        return False
+                    if time.monotonic() - self._last_received > self.args.timeout:
+                        print(f"Timeout waiting for image {num}")
+                        return False
+                    time.sleep(0.1)
+                self.time_waiting += time.monotonic() - wait_start
+        self._last_received = time.monotonic()
         return True
+
+    def _drain_idle(self) -> None:
+        """Rule 4: the next image is not there yet, so dispatch every
+        decoded frame and emit every frame in flight, in order.  A partial
+        batch stays in the buffer."""
+        completed = self.completed
+        self._drain_decoded(block=True)
+        while self.inflight:
+            self._emit_next()
+        tracing.count("idle_drain_frames", self.completed - completed)
 
     # --- the reader pool ----------------------------------------------------
 

@@ -194,8 +194,9 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         " device_decode_frames (frames whose bit planes became frames on the"
         " device), host_decode_vector (frames whose bitshuffle-LZ4 decode on"
         " the host took the vector untranspose), f64_walker_frames (frames"
-        " whose float64 threshold ran as the float64 walker), and the"
-        " kernels' launches.",
+        " whose float64 threshold ran as the float64 walker),"
+        " idle_drain_frames (frames emitted while intake found the next"
+        " image not there yet), and the kernels' launches.",
     )
     return p
 

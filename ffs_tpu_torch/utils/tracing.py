@@ -44,6 +44,7 @@ COUNTERS = (
     "host_decode_vector",  # frames fetched through the host decode's vector untranspose
     "device_decode_frames",  # frames whose bit planes became frames on the device
     "f64_walker_frames",  # frames whose float64 threshold ran as the float64 walker
+    "idle_drain_frames",  # frames emitted while intake found the next image not there yet
 )
 # the thread of spans that time a wait in a queue, not a thread's work:
 # ffs.inflight (dispatched, not yet collected) and ffs.batch_fill (taken in,

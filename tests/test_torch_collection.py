@@ -9,6 +9,9 @@ dispatched and not yet collected, and the queue fills to that depth;
 batched, one batch is in flight when the next is dispatched and the tail
 batch is zero-padded to B; the decode queue hands frames to dispatch in
 image order, and blocks on its head once more than ``threads`` frames wait.
+A late reader (:class:`LateReader`) makes intake miss: before it sleeps on
+the next image, every frame it holds is collected and its line written
+(rule 4), and no partial batch is flushed for it.
 The NeXus reader serves the reader pool beside the main thread's poll.
 """
 
@@ -56,6 +59,26 @@ class FakeReader:
         image = np.full((H, W), n + 1, dtype=np.uint16)
         self.on_decoded(n)
         return image
+
+
+class LateReader(FakeReader):
+    """Image n is there only at intake's ``misses(n) + 1``-th poll for it;
+    ``on_miss(n, k)`` runs at its k-th missed poll, counted from 1.  The
+    first miss comes before rule 4, every later one before a sleep."""
+
+    def __init__(self, misses, on_miss=lambda n, k: None, **kw):
+        super().__init__(**kw)
+        self.misses, self.on_miss = misses, on_miss
+        self.missed: dict[int, int] = {}
+
+    def is_image_available(self, n):
+        super().is_image_available(n)
+        k = self.missed.get(n, 0)
+        if k < self.misses(n):
+            self.missed[n] = k + 1
+            self.on_miss(n, k + 1)
+            return False
+        return True
 
 
 class FakeProcessor:
@@ -121,20 +144,24 @@ class FakeMerger:
         self.pushed.append(int(pixels.linear_index[0]))
 
 
-def _collect(reader, processor, n_images, *flags, rotation=False):
+def _lines(pipe) -> list[int]:
+    return [json.loads(line)["file-number"] for line in pipe.getvalue().splitlines()]
+
+
+def _collect(reader, processor, n_images, *flags, rotation=False, pipe=None, merger=None):
     """Run the loop over ``n_images``; (its pipe lines' image numbers, the loop)."""
     tracing.start(False)
     args = spotfinder._build_parser("test").parse_args(["--sample", *flags])
-    pipe = io.StringIO()
+    pipe = pipe or io.StringIO()
     loop = collection.Collection(args, reader, processor, np.ones((H, W), np.uint8),
                                  num_images=n_images, rotation=rotation, pipe=pipe,
                                  stop=threading.Event())
-    loop.merger = FakeMerger()
+    loop.merger = merger or FakeMerger()
     try:
         loop.run()
     finally:
         loop.close()
-    lines = [json.loads(line)["file-number"] for line in pipe.getvalue().splitlines()]
+    lines = _lines(pipe)
     assert loop.completed == len(lines)
     assert processor._outstanding() == 0  # everything dispatched was collected
     return lines, loop
@@ -217,6 +244,90 @@ def test_decode_queue_hands_over_a_done_head_at_once(capsys):
     lines, _ = _collect(reader, proc, n, "--threads", str(threads))
     assert polled[0] <= 1 < threads
     assert lines == list(range(n))
+
+
+def _collected(proc) -> list[int]:
+    return [n for e, nums in proc.events if e.startswith("collect") for n in nums]
+
+
+def _idle_drained() -> int:
+    return tracing.report()["counters"]["idle_drain_frames"]
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+def test_idle_drain_emits_every_frame_before_the_poll_sleeps(threads, capsys):
+    """Rule 4, per frame: when image ``num`` is late, every image below it is
+    collected, pushed and its line written before intake sleeps on it."""
+    n, late = 20, (5, 10, 15)
+    proc, pipe, merger = FakeProcessor(), io.StringIO(), FakeMerger()
+    seen = {}
+
+    def on_miss(k, miss):
+        if miss == 2:  # rule 4 has run; the poll sleeps next
+            seen[k] = (_collected(proc), _lines(pipe), list(merger.pushed))
+
+    reader = LateReader(lambda k: 2 if k in late else 0, on_miss)
+    lines, loop = _collect(reader, proc, n, "--threads", str(threads), rotation=True,
+                           pipe=pipe, merger=merger)
+    assert seen == {k: (list(range(k)),) * 3 for k in late}
+    assert max(proc.after) <= collection.frames_in_flight(threads)
+    assert lines == list(range(n))
+    assert loop.merger.pushed == list(range(n))
+    assert 0 < _idle_drained() <= 15
+
+
+def test_idle_drain_collects_full_batches_and_flushes_no_partial_one(capsys):
+    """Rule 4, batched: a full batch is collected before the poll sleeps; a
+    partial one waits in the buffer, so the batches are those of a reader
+    that is never late, and only the tail is padded."""
+    n, b, late = 14, 4, (5, 8, 13)
+    proc, pipe = FakeProcessor(batch=True), io.StringIO()
+    seen = {}
+
+    def on_miss(k, miss):
+        if miss == 2:
+            seen[k] = (_collected(proc), _lines(pipe))
+
+    reader = LateReader(lambda k: 2 if k in late else 0, on_miss)
+    lines, _ = _collect(reader, proc, n, "--threads", "2", "--batch", str(b), pipe=pipe)
+    assert seen == {5: (list(range(4)),) * 2, 8: (list(range(8)),) * 2,
+                    13: (list(range(12)),) * 2}
+    assert [nums for e, nums in proc.events if e == "dispatch_batch"] == [
+        [0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 10, 11], [12, 13]]
+    assert all(s.shape == (b, H, W) for s in proc.stacks)
+    assert all(s.all() for s in proc.stacks[:-1])  # no pad before the tail
+    assert not proc.stacks[-1][2:].any()
+    assert lines == list(range(n))
+    assert _idle_drained() == 12  # the three full batches before the misses
+
+
+@pytest.mark.parametrize("late", [False, True])
+def test_idle_drain_frames_counts_the_frames_rule_4_emits(late, capsys):
+    """Every image after the first is late by one poll: each frame's line is
+    written in the drain before the next image; a reader that is never
+    late never drains."""
+    n = 12
+    reader = LateReader(lambda k: int(late and k > 0))
+    lines, _ = _collect(reader, FakeProcessor(), n, "--threads", "4")
+    assert lines == list(range(n))
+    assert _idle_drained() == (n - 1 if late else 0)
+
+
+def test_time_waiting_leaves_the_idle_drain_out(capsys):
+    """A collect that takes 0.2 s runs inside the drain, not inside the
+    wait: the loop's waiting time stays below one collect."""
+    n, pause = 3, 0.2
+
+    class SlowCollect(FakeProcessor):
+        def collect(self, image_number, device_result, want_com=False):
+            time.sleep(pause)
+            return super().collect(image_number, device_result, want_com)
+
+    reader = LateReader(lambda k: int(k > 0))
+    lines, loop = _collect(reader, SlowCollect(), n, "--threads", "2")
+    assert lines == list(range(n))
+    assert _idle_drained() == n - 1  # two collects, 0.4 s, ran in the drain
+    assert loop.time_waiting < pause
 
 
 def test_nexus_reader_serves_reader_threads_beside_the_poll(tmp_path):
